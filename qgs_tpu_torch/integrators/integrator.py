@@ -1,0 +1,163 @@
+"""
+Ensemble integrator class
+=========================
+
+Counterpart of :class:`qgs_tpu.integrators.integrator.RungeKuttaIntegrator`:
+the reference API surface (``set_func`` / ``set_bca`` / ``initialize`` /
+``integrate`` / ``get_trajectories``) over one batched integration on one
+device (:func:`qgs_tpu_torch.integrators.rk.integrate_runge_kutta`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qgs_tpu_torch.integrators.rk import (
+    infer_ndim, integrate_runge_kutta, merge_tableau, rk4_tableau,
+)
+
+
+class RungeKuttaIntegrator:
+    """Ensemble Runge-Kutta integrator.
+
+    Parameters
+    ----------
+    num_threads: int, optional
+        Kept for API compatibility and ignored: the ensemble is one batch.
+    b, c, a: arrays, optional
+        Butcher tableau (default RK4).
+    number_of_dimensions: int, optional
+        State dimension (inferred from the first integration otherwise).
+    precision: str, optional
+        'float64' (default) integrates in the dtype of the tendency function
+        it is given: build the tendencies with ``dtype=torch.float32`` for a
+        float32 run.  'twofloat' is not ported yet.
+
+    The integration runs on the device of the tendency function; the
+    trajectories returned by :meth:`get_trajectories` stay there.
+    """
+
+    def __init__(self, num_threads=None, b=None, c=None, a=None,
+                 number_of_dimensions=None, precision="float64"):
+        if precision == "twofloat":
+            raise NotImplementedError(
+                "precision='twofloat' is not ported yet: it needs the "
+                "double-float arithmetic (ROADMAP queue 1, item 6) and the "
+                "kernel K2 (make_pallas_df_rk4)")
+        if precision != "float64":
+            raise ValueError(
+                f"unknown precision {precision!r}: expected 'float64' (the "
+                "tendency function's dtype); for a float32 run, build the "
+                "tendencies with dtype=torch.float32")
+        tab = merge_tableau(a, b, c)
+        self.a, self.b, self.c = tab if tab is not None else rk4_tableau()
+        self.func = None
+        self.n_dim = number_of_dimensions
+        self.ic = None
+        self._time = None
+        self._recorded_traj = None
+        self.precision = precision
+
+    # -- configuration -----------------------------------------------------
+
+    def set_func(self, f, ic_init=True):
+        """Set the tendency function (single-state with ``.batched``, or
+        batched)."""
+        self.func = getattr(f, "batched", f)
+        if ic_init:
+            self.ic = None
+
+    def set_bca(self, b=None, c=None, a=None, ic_init=True):
+        """Change the Butcher tableau (partial updates keep the other
+        coefficients)."""
+        self.a, self.b, self.c = merge_tableau(
+            a, b, c, current=(self.a, self.b, self.c))
+        if ic_init:
+            self.ic = None
+
+    def start(self):
+        """No-op (kept for API compatibility: there is no worker pool)."""
+
+    def terminate(self):
+        """No-op (kept for API compatibility)."""
+
+    stop = terminate
+
+    # -- attractor initialization ------------------------------------------
+
+    def initialize(self, convergence_time, dt, pert_size=0.01,
+                   reconvergence_time=None, forward=True,
+                   number_of_trajectories=1, ic=None, reconverge=False,
+                   rng=None):
+        """Spin an ensemble of initial conditions onto the attractor.
+
+        Random initial states are drawn from ``rng``, a
+        :class:`numpy.random.Generator`, which is required when ``ic`` is
+        not given.  With ``reconverge``, one long transient produces a
+        converged state which is then perturbed into the full ensemble and
+        re-converged for ``reconvergence_time``.
+        """
+        if ic is None:
+            if rng is None:
+                raise ValueError("initialize without ic draws random initial "
+                                 "states: pass rng=np.random.default_rng(seed)")
+            if self.n_dim is None:
+                self.n_dim = infer_ndim(self.func)
+            if (reconverge and reconvergence_time is not None
+                    and number_of_trajectories > 1):
+                seed_ic = rng.standard_normal(self.n_dim)
+                self.integrate(0., convergence_time, dt, ic=seed_ic,
+                               write_steps=0, forward=forward)
+                _, x0 = self.get_trajectories()
+                perts = pert_size * rng.standard_normal(
+                    (number_of_trajectories, self.n_dim))
+                ics = x0[None, :] + torch.as_tensor(perts).to(x0)
+                self.integrate(0., reconvergence_time, dt, ic=ics,
+                               write_steps=0, forward=forward)
+                _, x = self.get_trajectories()
+                self.ic = torch.atleast_2d(x)
+                return
+            tmp_ic = rng.standard_normal((number_of_trajectories, self.n_dim))
+        else:
+            tmp_ic = ic
+
+        self.integrate(0., convergence_time, dt, ic=tmp_ic, write_steps=0,
+                       forward=forward)
+        _, x = self.get_trajectories()
+        self.ic = torch.atleast_2d(x)
+
+    # -- integration -------------------------------------------------------
+
+    def integrate(self, t0, t, dt, ic=None, forward=True, write_steps=1):
+        """Integrate the ensemble; results retrieved via
+        :meth:`get_trajectories`.  ``ic`` (array or tensor, (ndim,) or
+        (B, ndim)) is cast to the tendency function's dtype and device."""
+        if self.func is None:
+            raise RuntimeError("set_func must be called first")
+        if ic is None:
+            ic = self.ic
+        if ic is None:
+            raise ValueError("no initial conditions available")
+        if not torch.is_tensor(ic):
+            ic = np.asarray(ic, dtype=np.float64)
+        self.n_dim = ic.shape[-1]
+
+        time, traj = integrate_runge_kutta(
+            self.func, t0, t, dt, ic, forward=forward,
+            write_steps=write_steps, b=self.b, c=self.c, a=self.a,
+            squeeze=False)
+        self._time = time
+        self._recorded_traj = traj.squeeze()
+
+    def get_trajectories(self):
+        """Return ``(time, trajectories)`` of the last integration: times as
+        a NumPy array, trajectories a tensor on the integration's device."""
+        return self._time, self._recorded_traj
+
+    def get_ic(self):
+        """Return the stored initial conditions (set by :meth:`initialize`)."""
+        return self.ic
+
+    def set_ic(self, ic):
+        self.ic = torch.atleast_2d(torch.as_tensor(ic))

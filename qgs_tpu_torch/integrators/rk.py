@@ -1,0 +1,196 @@
+"""
+Runge-Kutta integration (device compute path)
+=============================================
+
+Counterpart of :mod:`qgs_tpu.integrators.rk` for the plain trajectory
+integration: explicit Runge-Kutta steps for any Butcher tableau, over a
+batch of states (B, ndim).
+
+* The time grid reproduces the reference: ``concat(arange(t0, t, dt), [t])``,
+  each step taking its own ``np.diff`` of the grid (the last one possibly
+  shorter), reversed for backward runs.  With ``write_steps = w`` the
+  recorded points are ``time[::w]`` plus the final point.
+* The JAX package's ``lax.scan`` over record chunks becomes a step loop that
+  keeps only the recorded states.
+* Routing: classical RK4 of a :class:`~qgs_tpu_torch.ops.contraction.Tendency`
+  on a CUDA state runs the whole loop in the fused kernel
+  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`).  Every other case (the
+  CPU, other tableaux, tendency functions that carry no tensor) runs the
+  step loop with plain tensor operations, which the kernel does not cover.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qgs_tpu_torch.ops import fused_rk4 as _fused
+from qgs_tpu_torch.ops.contraction import Tendency
+
+
+def rk4_tableau():
+    """The classical RK4 Butcher tableau (reference default)."""
+    c = np.array([0., 0.5, 0.5, 1.])
+    b = np.array([1. / 6, 1. / 3, 1. / 3, 1. / 6])
+    a = np.zeros((4, 4))
+    a[1, 0] = 0.5
+    a[2, 1] = 0.5
+    a[3, 2] = 1.
+    return a, b, c
+
+
+def rk2_tableau():
+    """Heun's second-order method."""
+    c = np.array([0., 1.])
+    b = np.array([0.5, 0.5])
+    a = np.zeros((2, 2))
+    a[1, 0] = 1.
+    return a, b, c
+
+
+def merge_tableau(a=None, b=None, c=None, current=None):
+    """Merge partially-specified Butcher coefficients into a full
+    ``(a, b, c)`` tableau: unspecified coefficients fall back to ``current``
+    and then to the RK4 defaults.  Returns ``None`` when nothing is
+    specified and there is no current tableau."""
+    if a is None and b is None and c is None and current is None:
+        return None
+    base = current if current is not None else rk4_tableau()
+    return (np.asarray(a) if a is not None else np.asarray(base[0]),
+            np.asarray(b) if b is not None else np.asarray(base[1]),
+            np.asarray(c) if c is not None else np.asarray(base[2]))
+
+
+def time_grid(t0, t, dt):
+    """Reference-compatible integration time grid (host side)."""
+    return np.concatenate((np.arange(t0, t, dt), np.full((1,), t)))
+
+
+def _record_indices(n_points, write_steps):
+    """Indices into the time grid that get recorded (host side)."""
+    idx = list(range(0, n_points, write_steps))
+    if idx[-1] != n_points - 1:
+        idx.append(n_points - 1)
+    return np.array(idx)
+
+
+def _is_rk4(a, b, c):
+    return all(np.array_equal(np.asarray(x), y)
+               for x, y in zip((a, b, c), rk4_tableau()))
+
+
+def make_rk_step(f, a, b, c):
+    """Single-step function ``step(y, tt, dt) -> y_new`` for the explicit
+    tableau (a, b, c).  ``dt`` is cast to the state dtype before it scales
+    a stage (as in the JAX package: float32 states stay float32)."""
+    s = len(b)
+    a = np.asarray(a)
+    b = np.asarray(b)
+    c = np.asarray(c)
+
+    def step(y, tt, dt):
+        k = []
+        for i in range(s):
+            y_s = y
+            for l in range(i):
+                if a[i, l] != 0.0:
+                    y_s = y_s + _fused.scaled_dt(dt, a[i, l], y.dtype) * k[l]
+            k.append(f(tt + float(c[i]) * dt, y_s))
+        y_new = y
+        for i in range(s):
+            if b[i] != 0.0:
+                y_new = y_new + _fused.scaled_dt(dt, b[i], y.dtype) * k[i]
+        return y_new
+
+    return step
+
+
+def infer_ndim(f):
+    """Infer the state dimension of a batched tendency function by probing
+    it with zero states of growing size until the output is consistent
+    (ref ``qgs/integrators/integrate.py:131-143``)."""
+    kw = {k: getattr(f, k) for k in ("dtype", "device") if hasattr(f, k)}
+    for n in range(1, 513):
+        try:
+            m = int(f(0., torch.zeros((1, n), **kw)).shape[-1])
+            if m == n or int(f(0., torch.zeros((1, m), **kw)).shape[-1]) == m:
+                return m
+        except (RuntimeError, IndexError, ValueError):
+            continue
+    raise ValueError("could not infer the model dimension from the "
+                     "tendency function; pass an explicit ic")
+
+
+def _as_state(f, ic):
+    """The initial condition as a 2-D tensor in ``f``'s dtype and on its
+    device (a plain callable keeps the tensor's own, or float64 on the CPU
+    for an array)."""
+    ic = ic if torch.is_tensor(ic) else torch.as_tensor(np.asarray(ic,
+                                                                   np.float64))
+    ic = ic.to(dtype=getattr(f, "dtype", ic.dtype),
+               device=getattr(f, "device", ic.device))
+    return torch.atleast_2d(ic).contiguous()
+
+
+def _step_loop(f, y, tts, dts, write_steps, a, b, c):
+    """Plain step loop: ``(final, records)`` with records at steps 0, w,
+    2w, ... and the final step (the final state alone for w = 0)."""
+    step = make_rk_step(f, a, b, c)
+    n_steps = len(dts)
+    recs = [y] if write_steps > 0 else []
+    for s in range(n_steps):
+        y = step(y, float(tts[s]), float(dts[s]))
+        if write_steps > 0 and (s + 1) % write_steps == 0:
+            recs.append(y)
+    if write_steps == 0 or n_steps % write_steps:
+        recs.append(y)
+    return y, torch.stack(recs)
+
+
+def _fused_loop(f, y, dts, write_steps):
+    """The same records from one launch of the fused RK4 kernel."""
+    dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y.device)
+    final, recs = _fused.fused_rk4(f, y, dts_dev, write_steps)
+    parts = [y[None]] if write_steps > 0 else []
+    parts.append(recs)
+    if write_steps == 0 or len(dts) % write_steps:
+        parts.append(final[None])
+    return final, torch.cat(parts)
+
+
+def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
+                          b=None, c=None, a=None, squeeze=True):
+    """Integrate dx/dt = f(t, x) over [t0, t] for a batch of initial
+    conditions; returns ``(times, traj)`` with traj shaped (B, ndim,
+    n_records) (squeezed), a tensor on ``f``'s device.
+
+    ``f`` must be a *batched* tendency function (B, ndim) -> (B, ndim).  The
+    integration runs in ``f``'s dtype and on its device (``ic`` is cast and
+    moved there).  With ``ic=None`` the state dimension is probed from ``f``
+    and a zero initial condition is used.
+    """
+    if ic is None:
+        ic = np.zeros((1, infer_ndim(f)))
+    y = _as_state(f, ic)
+    if a is None and b is None and c is None:
+        a, b, c = rk4_tableau()
+
+    time = time_grid(t0, t, dt)
+    directed = time if forward else time[::-1]
+    tts, dts = directed[:-1], np.diff(directed)
+
+    if _is_rk4(a, b, c) and isinstance(f, Tendency) and y.is_cuda:
+        _, recs = _fused_loop(f, y, dts, write_steps)
+    else:
+        _, recs = _step_loop(f, y, tts, dts, write_steps, a, b, c)
+    traj = torch.movedim(recs, 0, -1)           # (B, ndim, n_records)
+
+    if not forward:
+        traj = traj.flip(-1)
+
+    if write_steps > 0:
+        rec = _record_indices(len(time), write_steps)
+        rec_times = time[rec] if forward else time[::-1][rec][::-1]
+    else:
+        rec_times, traj = time[-1], traj[..., -1]
+    return rec_times, (traj.squeeze() if squeeze else traj)

@@ -1,0 +1,79 @@
+"""
+Build of the CUDA kernels
+=========================
+
+The kernels in ``qgs_tpu_torch/csrc/`` have a plain C interface and include
+no PyTorch headers.  At first use they are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library under ``qgs_tpu_torch/_build/`` (named by
+a hash of the sources, so an edited source is rebuilt) and loaded with
+:mod:`ctypes`.  Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("rk4_fused.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+build_log = ""          # nvcc's output of the last build in this process
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels of qgs_tpu_torch are "
+                       "built with the CUDA toolkit's nvcc at first use")
+
+
+def _declare(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("qgs_rk4_fused_f32", "qgs_rk4_fused_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, ptr, i32, ptr, i32, i32, ptr,
+                       ptr]
+        fn.restype = i32
+    lib.qgs_cuda_error_string.argtypes = [i32]
+    lib.qgs_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library():
+    """Build (once per source version) and load the kernel library."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    srcs = [CSRC / s for s in SOURCES]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"libqgs_kernels_{digest}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{build_log}")
+        os.replace(tmp, so)
+    _lib = _declare(ctypes.CDLL(str(so)))
+    return _lib
+
+
+def error_string(err):
+    return load_library().qgs_cuda_error_string(err).decode()

@@ -1,0 +1,53 @@
+"""The port runs where JAX is absent: a subprocess with ``jax`` blocked
+imports ``qgs_tpu_torch``, builds MAOOAM and integrates 10 steps on the CPU;
+and no source file of the port imports JAX."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None          # any import of jax now raises ImportError
+import numpy as np
+import qgs_tpu_torch
+from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.models.tendencies import create_tendencies
+from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+
+pars = QgParams()
+pars.set_atmospheric_channel_fourier_modes(2, 2)
+pars.set_oceanic_basin_fourier_modes(2, 4)
+f, Df, qgt = create_tendencies(pars, return_qgtensor=True)
+assert qgt.tensor.shape == (37, 37, 37) and qgt.tensor.nnz > 0
+integ = RungeKuttaIntegrator()
+integ.set_func(f)
+integ.integrate(0., 1., 0.1,
+                ic=np.random.default_rng(0).random((4, pars.ndim)) * 0.01,
+                write_steps=5)
+t, traj = integ.get_trajectories()
+assert tuple(traj.shape) == (4, 36, 3) and bool(traj.isfinite().all())
+assert sys.modules["jax"] is None
+print("OK", sorted(m for m in sys.modules if m.split(".")[0] == "jax"))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "QGS_TPU_X64"}
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK ['jax']", proc.stdout
+
+
+def test_no_port_source_imports_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)", re.MULTILINE)
+    sources = sorted((REPO / "qgs_tpu_torch").rglob("*.py"))
+    assert sources
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert not offenders
+    assert not pattern.search((REPO / "chip_smoke.py").read_text())

@@ -1,0 +1,138 @@
+"""The fused RK4 kernel's layout and plain version against the JAX package:
+the plain version in float32 against the TPU kernel it replaces
+(``make_pallas_rk4_f32``, run in interpret mode), and in float64 against
+``make_rk_step``.  On the CPU the wrapper runs the plain version and
+launches nothing; the kernel itself is compared with its plain version only
+on a CUDA card (marked ``cuda``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qgs_tpu.integrators.rk import make_rk_step, rk4_tableau, time_grid
+from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
+from qgs_tpu.ops.pallas_kernels import make_pallas_rk4_f32
+from qgs_tpu_torch.ops import fused_rk4
+from qgs_tpu_torch.ops.contraction import from_numpy
+
+from tests.test_trajectory import _maooam_params, _rp_params
+
+
+@pytest.fixture(scope="module")
+def maooam():
+    pars = _maooam_params()
+    f, _, qgt = jax_create_tendencies(pars, return_qgtensor=True)
+    return pars, f, qgt.tensor
+
+
+def _port(tensor, dtype=torch.float64, device="cpu"):
+    return from_numpy(tensor.coords, tensor.data, tensor.shape, dtype, device)
+
+
+@pytest.mark.parametrize("make_params", [_maooam_params, _rp_params],
+                         ids=["maooam", "rp"])
+def test_csr_layout_reproduces_the_tendency(make_params):
+    """The kernel's row-sorted layout, summed row by row in NumPy, gives the
+    tendency of the COO tensor."""
+    pars = make_params()
+    f, _, qgt = jax_create_tendencies(pars, return_qgtensor=True)
+    t = qgt.tensor
+    row_ptr, jk, vals = fused_rk4.csr_layout(t.coords, t.data, t.shape)
+    n1 = t.shape[0]
+    assert row_ptr.dtype == np.int32 and jk.dtype == np.int32
+    assert row_ptr[0] == 0 and row_ptr[1] == 0          # dummy row dropped
+    assert row_ptr[-1] == jk.size == vals.size == np.sum(t.coords[0] != 0)
+    x = np.random.default_rng(5).random((3, pars.ndim)) * 0.05
+    xx = np.concatenate([np.ones((3, 1)), x], axis=1)
+    j, k = jk & 0xffff, jk >> 16
+    out = np.zeros((3, n1))
+    for r in range(n1):
+        e = slice(row_ptr[r], row_ptr[r + 1])
+        out[:, r] = (vals[e] * xx[:, j[e]] * xx[:, k[e]]).sum(axis=1)
+    np.testing.assert_allclose(out[:, 1:], np.asarray(f.batched(0., x)),
+                               rtol=1e-12, atol=1e-14)
+
+
+def test_reference_f32_matches_pallas_kernel(maooam):
+    pars, _, tensor = maooam
+    x = np.random.default_rng(4).random((8, pars.ndim)) * 0.05
+    run = make_pallas_rk4_f32(tensor, 0.1, n_steps=10, batch_block=4,
+                              interpret=True)
+    y_pallas = np.asarray(run(jnp.asarray(x, jnp.float32)))
+
+    f32 = _port(tensor, torch.float32)
+    y, rec = fused_rk4.fused_rk4_reference(
+        f32, torch.as_tensor(x, dtype=torch.float32), np.full(10, 0.1))
+    assert y.dtype == torch.float32 and rec.shape == (0, 8, pars.ndim)
+    np.testing.assert_allclose(y.numpy(), y_pallas, rtol=1e-5, atol=1e-7)
+
+
+def test_reference_f64_matches_jax_rk_step(maooam):
+    """Step by step on the reference's grid (a shorter last step), with the
+    records of every third step."""
+    pars, f, tensor = maooam
+    x = np.random.default_rng(6).random((4, pars.ndim)) * 0.01
+    grid = time_grid(0., 2.05, 0.1)
+    dts = np.diff(grid)
+    step = make_rk_step(f.batched, *rk4_tableau())
+    ys, y = [], jnp.asarray(x)
+    for tt, dt in zip(grid[:-1], dts):
+        y = step(y, tt, dt)
+        ys.append(np.asarray(y))
+
+    y_ref, rec = fused_rk4.fused_rk4_reference(_port(tensor),
+                                               torch.as_tensor(x), dts, 3)
+    np.testing.assert_allclose(y_ref.numpy(), ys[-1], rtol=1e-12, atol=1e-14)
+    assert rec.shape == (len(dts) // 3, 4, pars.ndim)
+    np.testing.assert_allclose(rec.numpy(), np.stack(ys[2::3]), rtol=1e-12,
+                               atol=1e-14)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing(maooam):
+    pars, _, tensor = maooam
+    f = _port(tensor)
+    x = torch.as_tensor(np.random.default_rng(7).random((3, pars.ndim)) * 0.01)
+    dts = torch.full((12,), 0.1, dtype=torch.float64)
+    before = fused_rk4.launches
+    y, rec = fused_rk4.fused_rk4(f, x, dts, 5)
+    y_ref, rec_ref = fused_rk4.fused_rk4_reference(f, x, dts, 5)
+    assert fused_rk4.launches == before == 0
+    assert torch.equal(y, y_ref) and torch.equal(rec, rec_ref)
+    assert rec.shape == (2, 3, pars.ndim)
+    assert not torch.equal(y, x)                  # the input is not modified
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused RK4 kernel has no CPU build")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,n_steps", [
+    (torch.float64, dict(rtol=1e-9, atol=1e-11), 301),
+    (torch.float32, dict(rtol=1e-4, atol=1e-6), 100),
+], ids=["f64", "f32"])
+def test_kernel_matches_plain_version_on_card(maooam, cuda_device, dtype, tol,
+                                              n_steps):
+    """The kernel against the float64 plain version on the card: B = 1000
+    (a ragged last block), the reference's grid with a shorter last step,
+    a record every 7 steps."""
+    pars, _, tensor = maooam
+    dts = torch.as_tensor(np.diff(time_grid(0., 30.05, 0.1))[:n_steps],
+                          device=cuda_device)
+    x = torch.as_tensor(np.random.default_rng(1).random((1000, pars.ndim))
+                        * 0.01, device=cuda_device)
+    before = fused_rk4.launches
+    y, rec = fused_rk4.fused_rk4(_port(tensor, dtype, cuda_device),
+                                 x.to(dtype), dts, 7)
+    torch.cuda.synchronize()
+    assert fused_rk4.launches == before + 1
+    y_ref, rec_ref = fused_rk4.fused_rk4_reference(
+        _port(tensor, torch.float64, cuda_device), x, dts, 7)
+    np.testing.assert_allclose(y.double().cpu().numpy(),
+                               y_ref.cpu().numpy(), **tol)
+    np.testing.assert_allclose(rec.double().cpu().numpy(),
+                               rec_ref.cpu().numpy(), **tol)
