@@ -3,17 +3,22 @@
 Smoke run of the PyTorch/CUDA port on one NVIDIA GPU
 ====================================================
 
-Drives the port's main path (``qgs_tpu_torch``) once on the card: the MAOOAM
-configuration (ndim 36) -> ``create_tendencies(device="cuda")`` ->
-``RungeKuttaIntegrator.integrate`` of a 4096-member ensemble through the
-fused RK4 kernel -> ``get_trajectories``.  Phases:
+Drives the port's main paths (``qgs_tpu_torch``) once each on the card: the
+MAOOAM configuration (ndim 36) -> ``create_tendencies(device="cuda")`` ->
+``RungeKuttaIntegrator.integrate`` of a 4096-member ensemble, in float64
+through the fused RK4 kernel and with ``precision="twofloat"`` through the
+fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
 
 1. device: a CUDA card is required; prints the card's name and power limit;
-2. build: compiles ``qgs_tpu_torch/csrc/rk4_fused.cu`` with nvcc (sm_90a);
-3. the kernel against its plain PyTorch version on the card, float64 and
-   float32, and the integrator's kernel route against its plain route;
-4. the main path, with the kernel's launch count reset just before it;
-5. times of the kernel and of its plain version at B = 16384, 1000 steps.
+2. build: compiles ``qgs_tpu_torch/csrc/rk4_fused.cu`` and
+   ``rk4_df_fused.cu`` with nvcc (sm_90a), in parallel;
+3. each kernel against its plain PyTorch version on the card (the RK4
+   kernel in float64 and float32, the double-float one on pairs), and the
+   integrator's kernel routes against its plain routes;
+4. the main paths, float64 then twofloat, with the kernels' launch counts
+   reset just before each; each whole trajectory is held against the plain
+   float64 version at the same shapes;
+5. times of each kernel and of its plain version at B = 16384, 1000 steps.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -97,10 +102,13 @@ def main():
         from qgs_tpu_torch.host import QgParams
         from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
         from qgs_tpu_torch.integrators.rk import (integrate_runge_kutta,
+                                                  integrate_runge_kutta_df,
                                                   time_grid)
         from qgs_tpu_torch.models.tendencies import create_tendencies
-        from qgs_tpu_torch.ops import _build, fused_rk4
+        from qgs_tpu_torch.ops import _build, fused_df_rk4, fused_rk4
         from qgs_tpu_torch.ops.contraction import from_numpy
+        from qgs_tpu_torch.ops.twofloat import (DfTendency, df_from_f64,
+                                                df_to_f64)
     except ImportError as e:
         fail(f"the qgs_tpu_torch package is not beside this script: {e}")
 
@@ -120,10 +128,10 @@ def main():
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     _build.load_library()
-    print(f"[2] build: rk4_fused.cu in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[2] build: {' + '.join(_build.SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print("  ptxas:", line.strip(), flush=True)
 
     # -- 3. kernel against its plain version -------------------------------
@@ -163,6 +171,31 @@ def main():
         fail("backward record times differ between kernel and plain route")
     check_close("integrate backward", trk, trp, TOL64)
 
+    # the double-float kernel on the same inputs: the wrapper directly, and
+    # integrate_runge_kutta_df's kernel route against its plain route (a
+    # function that carries no tensor), forward and backward
+    fdf = DfTendency(coo.coords, coo.data, coo.shape, device=dev)
+    ydf = df_from_f64(y0)
+    yk, rk = fused_df_rk4.fused_df_rk4(fdf, *ydf, dts, 7)
+    yr, rr = fused_df_rk4.fused_df_rk4_reference(fdf, *ydf, dts, 7)
+    errs_df = [check_close("df B=1000 301 steps final", df_to_f64(yk),
+                           df_to_f64(yr), TOL64),
+               check_close("df B=1000 records every 7", df_to_f64(rk),
+                           df_to_f64(rr), TOL64)]
+    for forward in (True, False):
+        tk, trk = integrate_runge_kutta_df(fdf, 0., 30.05, 0.1, y0,
+                                           write_steps=7, forward=forward)
+        tp, trp = integrate_runge_kutta_df(lambda h, lo: fdf(h, lo), 0.,
+                                           30.05, 0.1, y0, write_steps=7,
+                                           forward=forward)
+        if not np.array_equal(tk, tp):
+            fail("twofloat record times differ between kernel and plain "
+                 "route")
+        errs_df.append(check_close(
+            f"integrate_runge_kutta_df(0, 30.05, 0.1, write_steps=7, "
+            f"forward={forward})", trk, trp, TOL64))
+    err_df = max(errs_df)
+
     # the main path's shapes: B = 4096, the 10000-step grid, a record every 100
     ic = np.random.default_rng(0).random((4096, n)) * 0.01
     ic_dev = torch.as_tensor(ic, device=dev)
@@ -171,36 +204,50 @@ def main():
     yr, rr = fused_rk4.fused_rk4_reference(f64, ic_dev, dts_main, 100)
     check_close("f64 B=4096 10000 steps final", yk, yr, TOL64)
     err64 = check_close("f64 B=4096 records every 100", rk, rr, TOL64)
+    # the plain float64 trajectory of the whole main-path ensemble, which
+    # the main paths of both precisions are held against in full
+    traj_ref = torch.movedim(torch.cat([ic_dev[None], rr]), 0, -1)
 
     # -- 4. the main path: f, Df from create_tendencies(device="cuda") above
-    integrator = RungeKuttaIntegrator()
-    integrator.set_func(f)
-    torch.cuda.synchronize()
-    fused_rk4.launches = 0
-    t0 = time.perf_counter()
-    integrator.integrate(0., 1000., 0.1, ic=ic, write_steps=100)
-    t, traj = integrator.get_trajectories()
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    main_launches = fused_rk4.launches
-    print(f"[4] main path: integrate(0, 1000, 0.1, B=4096, write_steps=100) "
-          f"in {main_s:.3f} s, fused_rk4 launches {main_launches}",
-          flush=True)
-    if main_launches < 1:
-        fail("the main path did not launch the fused RK4 kernel")
-    if tuple(traj.shape) != (4096, n, 101) or traj.device.type != "cuda":
-        fail(f"trajectory shape {tuple(traj.shape)} on {traj.device}, "
-             f"expected (4096, {n}, 101) on cuda")
-    if not torch.isfinite(traj).all():
-        fail("non-finite values in the trajectory")
-    if len(t) != 101 or t[0] != 0. or t[-1] != 1000.:
-        fail(f"record times {t[:3]}...{t[-3:]}")
     tp, trp = integrate_runge_kutta(lambda tt, x: f.batched(tt, x), 0.,
                                     1000., 0.1, ic_dev[:8], write_steps=100)
-    if not np.array_equal(t, tp):
-        fail("main path record times differ from the plain path")
-    check_close("main path members 0-7 vs plain f64 path", traj[:8], trp,
-                TOL64)
+    launches, err_main = {}, {}
+    for precision, kernel in (("float64", "rk4_fused"),
+                              ("twofloat", "rk4_df_fused")):
+        integrator = RungeKuttaIntegrator(precision=precision)
+        integrator.set_func(f)
+        torch.cuda.synchronize()
+        fused_rk4.launches = fused_df_rk4.launches = 0
+        t0 = time.perf_counter()
+        integrator.integrate(0., 1000., 0.1, ic=ic, write_steps=100)
+        t, traj = integrator.get_trajectories()
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts = {"rk4_fused": fused_rk4.launches,
+                  "rk4_df_fused": fused_df_rk4.launches}
+        launches[kernel] = counts[kernel]
+        print(f"[4] main path {precision}: integrate(0, 1000, 0.1, B=4096, "
+              f"write_steps=100) in {main_s:.3f} s, launches {counts}",
+              flush=True)
+        if counts[kernel] < 1:
+            fail(f"the {precision} main path did not launch {kernel}")
+        if tuple(traj.shape) != (4096, n, 101) or traj.device.type != "cuda":
+            fail(f"trajectory shape {tuple(traj.shape)} on {traj.device}, "
+                 f"expected (4096, {n}, 101) on cuda")
+        if traj.dtype != torch.float64:
+            fail(f"{precision} trajectory dtype {traj.dtype}")
+        if not torch.isfinite(traj).all():
+            fail("non-finite values in the trajectory")
+        if len(t) != 101 or t[0] != 0. or t[-1] != 1000.:
+            fail(f"record times {t[:3]}...{t[-3:]}")
+        if not np.array_equal(t, tp):
+            fail("main path record times differ from the plain path")
+        err_8 = check_close(f"{precision} main path members 0-7 vs plain f64 "
+                            "path", traj[:8], trp, TOL64)
+        err_all = check_close(f"{precision} main path, all 4096 members and "
+                              "101 records, vs plain f64 fused_rk4_reference",
+                              traj, traj_ref, TOL64)
+        err_main[precision] = (err_8, err_all)
 
     # -- 5. times ----------------------------------------------------------
     B, steps = 16384, 1000
@@ -208,13 +255,22 @@ def main():
                          device=dev)
     dts_b = torch.full((steps,), 0.1, dtype=torch.float64, device=dev)
     times = {}
-    for name, fm, y in (("f64", f64, yb), ("f32", f32, yb.float())):
-        fused_rk4.fused_rk4(fm, y, dts_b[:10], 0)                # warm-up
-        fused_rk4.fused_rk4_reference(fm, y, dts_b[:10], 0)
-        plain1 = cuda_ms(lambda: fused_rk4.fused_rk4_reference(fm, y, dts_b))
-        kern1 = cuda_ms(lambda: fused_rk4.fused_rk4(fm, y, dts_b))
-        kern2 = cuda_ms(lambda: fused_rk4.fused_rk4(fm, y, dts_b))
-        plain2 = cuda_ms(lambda: fused_rk4.fused_rk4_reference(fm, y, dts_b))
+    yb32, ybdf = yb.float(), df_from_f64(yb)
+    runs = {
+        "f64": (lambda d: fused_rk4.fused_rk4(f64, yb, d),
+                lambda d: fused_rk4.fused_rk4_reference(f64, yb, d)),
+        "f32": (lambda d: fused_rk4.fused_rk4(f32, yb32, d),
+                lambda d: fused_rk4.fused_rk4_reference(f32, yb32, d)),
+        "df": (lambda d: fused_df_rk4.fused_df_rk4(fdf, *ybdf, d),
+               lambda d: fused_df_rk4.fused_df_rk4_reference(fdf, *ybdf, d)),
+    }
+    for name, (run_kernel, run_plain) in runs.items():
+        run_kernel(dts_b[:10])                                   # warm-up
+        run_plain(dts_b[:10])
+        plain1 = cuda_ms(lambda: run_plain(dts_b))
+        kern1 = cuda_ms(lambda: run_kernel(dts_b))
+        kern2 = cuda_ms(lambda: run_kernel(dts_b))
+        plain2 = cuda_ms(lambda: run_plain(dts_b))
         kern, plain = min(kern1, kern2), min(plain1, plain2)
         times[name] = (kern, plain)
         print(f"[5] {name} B={B} {steps} steps: kernel {kern:.3f} ms "
@@ -232,14 +288,27 @@ def main():
         "route": "cuda",
         "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
-        "launches": main_launches,
+        "launches": launches["rk4_fused"],
         "max_abs_err": err64,
         "ms": times["f64"][0],
         "plain_ms": times["f64"][1],
         "shape": f"B={B} n={n} steps={steps} float64",
+        "main_path_max_abs_err_vs_f64": err_main["float64"][1],
         "f32_max_abs_err": err32,
         "f32_ms": times["f32"][0],
         "f32_plain_ms": times["f32"][1],
+    }, {
+        "name": "rk4_df_fused",
+        "route": "cuda",
+        "source": "qgs_tpu_torch/csrc/rk4_df_fused.cu",
+        "replaces": "qgs_tpu/ops/pallas_kernels.py:107",
+        "launches": launches["rk4_df_fused"],
+        "max_abs_err": err_df,
+        "ms": times["df"][0],
+        "plain_ms": times["df"][1],
+        "shape": f"B={B} n={n} steps={steps} double-float",
+        "main_path_max_abs_err_vs_f64": err_main["twofloat"][1],
+        "main_path_members_0_7_max_abs_err_vs_f64": err_main["twofloat"][0],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ Ensemble integrator class
 Counterpart of :class:`qgs_tpu.integrators.integrator.RungeKuttaIntegrator`:
 the reference API surface (``set_func`` / ``set_bca`` / ``initialize`` /
 ``integrate`` / ``get_trajectories``) over one batched integration on one
-device (:func:`qgs_tpu_torch.integrators.rk.integrate_runge_kutta`).
+device (:func:`qgs_tpu_torch.integrators.rk.integrate_runge_kutta`, or
+:func:`~qgs_tpu_torch.integrators.rk.integrate_runge_kutta_df` for
+``precision='twofloat'``).
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ import numpy as np
 import torch
 
 from qgs_tpu_torch.integrators.rk import (
-    infer_ndim, integrate_runge_kutta, merge_tableau, rk4_tableau,
+    infer_ndim, integrate_runge_kutta, integrate_runge_kutta_df, merge_tableau,
+    rk4_tableau,
 )
+from qgs_tpu_torch.ops.twofloat import DfTendency
 
 
 class RungeKuttaIntegrator:
@@ -32,7 +36,11 @@ class RungeKuttaIntegrator:
     precision: str, optional
         'float64' (default) integrates in the dtype of the tendency function
         it is given: build the tendencies with ``dtype=torch.float32`` for a
-        float32 run.  'twofloat' is not ported yet.
+        float32 run.  'twofloat' integrates in double-float (pairs of
+        float32, about 48 bits of mantissa) with float64 initial conditions
+        and trajectories; it needs a tendency function made by
+        :func:`~qgs_tpu_torch.models.tendencies.create_tendencies` (its
+        ``.qgtensor`` carries the tensor) and takes any explicit tableau.
 
     The integration runs on the device of the tendency function; the
     trajectories returned by :meth:`get_trajectories` stay there.
@@ -40,16 +48,11 @@ class RungeKuttaIntegrator:
 
     def __init__(self, num_threads=None, b=None, c=None, a=None,
                  number_of_dimensions=None, precision="float64"):
-        if precision == "twofloat":
-            raise NotImplementedError(
-                "precision='twofloat' is not ported yet: it needs the "
-                "double-float arithmetic (ROADMAP queue 1, item 6) and the "
-                "kernel K2 (make_pallas_df_rk4)")
-        if precision != "float64":
+        if precision not in ("float64", "twofloat"):
             raise ValueError(
                 f"unknown precision {precision!r}: expected 'float64' (the "
-                "tendency function's dtype); for a float32 run, build the "
-                "tendencies with dtype=torch.float32")
+                "tendency function's dtype) or 'twofloat'; for a float32 run, "
+                "build the tendencies with dtype=torch.float32")
         tab = merge_tableau(a, b, c)
         self.a, self.b, self.c = tab if tab is not None else rk4_tableau()
         self.func = None
@@ -58,6 +61,8 @@ class RungeKuttaIntegrator:
         self._time = None
         self._recorded_traj = None
         self.precision = precision
+        self._qgtensor = None
+        self._df_func = None
 
     # -- configuration -----------------------------------------------------
 
@@ -65,6 +70,8 @@ class RungeKuttaIntegrator:
         """Set the tendency function (single-state with ``.batched``, or
         batched)."""
         self.func = getattr(f, "batched", f)
+        self._qgtensor = getattr(f, "qgtensor", None)
+        self._df_func = None
         if ic_init:
             self.ic = None
 
@@ -83,6 +90,23 @@ class RungeKuttaIntegrator:
         """No-op (kept for API compatibility)."""
 
     stop = terminate
+
+    def _df_tendency(self):
+        """The double-float tendency of the model, on the tendency
+        function's device (built once per ``set_func``).  The twofloat tier
+        runs the model's tensor, so the function must carry one."""
+        if self._qgtensor is None:
+            raise RuntimeError(
+                "precision='twofloat' needs a tendency function from "
+                "create_tendencies (carrying its .qgtensor): the double-float "
+                "step runs the model's tensor, and a plain callable would be "
+                "silently ignored")
+        if self._df_func is None:
+            t = self._qgtensor.tensor
+            self._df_func = DfTendency(t.coords, t.data, t.shape,
+                                       device=getattr(self.func, "device",
+                                                      "cpu"))
+        return self._df_func
 
     # -- attractor initialization ------------------------------------------
 
@@ -143,10 +167,16 @@ class RungeKuttaIntegrator:
             ic = np.asarray(ic, dtype=np.float64)
         self.n_dim = ic.shape[-1]
 
-        time, traj = integrate_runge_kutta(
-            self.func, t0, t, dt, ic, forward=forward,
-            write_steps=write_steps, b=self.b, c=self.c, a=self.a,
-            squeeze=False)
+        if self.precision == "twofloat":
+            time, traj = integrate_runge_kutta_df(
+                self._df_tendency(), t0, t, dt, ic, forward=forward,
+                write_steps=write_steps, squeeze=False, a=self.a, b=self.b,
+                c=self.c)
+        else:
+            time, traj = integrate_runge_kutta(
+                self.func, t0, t, dt, ic, forward=forward,
+                write_steps=write_steps, b=self.b, c=self.c, a=self.a,
+                squeeze=False)
         self._time = time
         self._recorded_traj = traj.squeeze()
 

@@ -4,7 +4,9 @@ Runge-Kutta integration (device compute path)
 
 Counterpart of :mod:`qgs_tpu.integrators.rk` for the plain trajectory
 integration: explicit Runge-Kutta steps for any Butcher tableau, over a
-batch of states (B, ndim).
+batch of states (B, ndim), in the tendency's dtype
+(:func:`integrate_runge_kutta`) or in double-float arithmetic
+(:func:`integrate_runge_kutta_df`).
 
 * The time grid reproduces the reference: ``concat(arange(t0, t, dt), [t])``,
   each step taking its own ``np.diff`` of the grid (the last one possibly
@@ -17,6 +19,9 @@ batch of states (B, ndim).
   (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`).  Every other case (the
   CPU, other tableaux, tendency functions that carry no tensor) runs the
   step loop with plain tensor operations, which the kernel does not cover.
+  Likewise classical RK4 of a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`
+  on a CUDA state runs in the fused double-float kernel
+  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`).
 """
 
 from __future__ import annotations
@@ -24,8 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qgs_tpu_torch.ops import fused_df_rk4 as _fused_df
 from qgs_tpu_torch.ops import fused_rk4 as _fused
 from qgs_tpu_torch.ops.contraction import Tendency
+from qgs_tpu_torch.ops.twofloat import (
+    DfTendency, df_from_f64, df_to_f64, make_df_rk4_step_dynamic,
+    make_df_rk_step_dynamic,
+)
 
 
 def rk4_tableau():
@@ -132,30 +142,67 @@ def _as_state(f, ic):
     return torch.atleast_2d(ic).contiguous()
 
 
-def _step_loop(f, y, tts, dts, write_steps, a, b, c):
-    """Plain step loop: ``(final, records)`` with records at steps 0, w,
-    2w, ... and the final step (the final state alone for w = 0)."""
-    step = make_rk_step(f, a, b, c)
+def _step_loop(step, y, tts, dts, write_steps, record=lambda y: y):
+    """Plain step loop: the records at steps 0, w, 2w, ... and the final
+    step (the final state alone for w = 0), each passed through
+    ``record``, stacked."""
     n_steps = len(dts)
-    recs = [y] if write_steps > 0 else []
+    recs = [record(y)] if write_steps > 0 else []
     for s in range(n_steps):
         y = step(y, float(tts[s]), float(dts[s]))
         if write_steps > 0 and (s + 1) % write_steps == 0:
-            recs.append(y)
+            recs.append(record(y))
     if write_steps == 0 or n_steps % write_steps:
-        recs.append(y)
-    return y, torch.stack(recs)
+        recs.append(record(y))
+    return torch.stack(recs)
+
+
+def _assemble(y0, recs, final, n_steps, write_steps):
+    """The step loop's records from a fused kernel's: the initial state,
+    the kernel's records and, when it is not among them, the final one."""
+    parts = [y0[None]] if write_steps > 0 else []
+    parts.append(recs)
+    if write_steps == 0 or n_steps % write_steps:
+        parts.append(final[None])
+    return torch.cat(parts)
 
 
 def _fused_loop(f, y, dts, write_steps):
     """The same records from one launch of the fused RK4 kernel."""
     dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y.device)
     final, recs = _fused.fused_rk4(f, y, dts_dev, write_steps)
-    parts = [y[None]] if write_steps > 0 else []
-    parts.append(recs)
-    if write_steps == 0 or len(dts) % write_steps:
-        parts.append(final[None])
-    return final, torch.cat(parts)
+    return _assemble(y, recs, final, len(dts), write_steps)
+
+
+def _fused_df_loop(f, y, dts, write_steps):
+    """The same records, as float64, from one launch of the fused
+    double-float RK4 kernel."""
+    dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y[0].device)
+    final, recs = _fused_df.fused_df_rk4(f, *y, dts_dev, write_steps)
+    return _assemble(df_to_f64(y), df_to_f64(recs), df_to_f64(final),
+                     len(dts), write_steps)
+
+
+def _directed_grid(t0, t, dt, forward):
+    """The time grid, and each step's start time and size in the direction
+    of integration."""
+    time = time_grid(t0, t, dt)
+    directed = time if forward else time[::-1]
+    return time, directed[:-1], np.diff(directed)
+
+
+def _finish(time, recs, forward, write_steps, squeeze):
+    """Record times and the (B, ndim, n_records) trajectory (the last
+    state alone for write_steps = 0) from the stacked records."""
+    traj = torch.movedim(recs, 0, -1)           # (B, ndim, n_records)
+    if not forward:
+        traj = traj.flip(-1)
+    if write_steps > 0:
+        rec = _record_indices(len(time), write_steps)
+        rec_times = time[rec] if forward else time[::-1][rec][::-1]
+    else:
+        rec_times, traj = time[-1], traj[..., -1]
+    return rec_times, (traj.squeeze() if squeeze else traj)
 
 
 def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
@@ -174,23 +221,45 @@ def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
     y = _as_state(f, ic)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
-
-    time = time_grid(t0, t, dt)
-    directed = time if forward else time[::-1]
-    tts, dts = directed[:-1], np.diff(directed)
+    time, tts, dts = _directed_grid(t0, t, dt, forward)
 
     if _is_rk4(a, b, c) and isinstance(f, Tendency) and y.is_cuda:
-        _, recs = _fused_loop(f, y, dts, write_steps)
+        recs = _fused_loop(f, y, dts, write_steps)
     else:
-        _, recs = _step_loop(f, y, tts, dts, write_steps, a, b, c)
-    traj = torch.movedim(recs, 0, -1)           # (B, ndim, n_records)
+        recs = _step_loop(make_rk_step(f, a, b, c), y, tts, dts, write_steps)
+    return _finish(time, recs, forward, write_steps, squeeze)
 
-    if not forward:
-        traj = traj.flip(-1)
 
-    if write_steps > 0:
-        rec = _record_indices(len(time), write_steps)
-        rec_times = time[rec] if forward else time[::-1][rec][::-1]
+def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
+                             squeeze=True, a=None, b=None, c=None):
+    """Integrate the model in double-float (pairs of float32) arithmetic:
+    about 48-bit-mantissa trajectories, with the time grid and record
+    semantics of :func:`integrate_runge_kutta`.  Counterpart of the JAX
+    package's ``integrate_runge_kutta_df``.
+
+    ``f`` is a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`, or any
+    ``f(y_hi, y_lo) -> (f_hi, f_lo)`` on (B, ndim) pairs.  ``ic`` is float64
+    (B, ndim) and the returned trajectory is float64, on ``f``'s device.
+    Any explicit Butcher tableau is accepted (default RK4); an implicit one
+    raises ``ValueError``.  Classical RK4 of a ``DfTendency`` on a CUDA
+    state runs in one launch of the fused kernel; every other case runs the
+    plain double-float step loop.
+    """
+    ic = ic if torch.is_tensor(ic) else torch.as_tensor(np.asarray(ic))
+    ic = torch.atleast_2d(ic.to(dtype=torch.float64,
+                                device=getattr(f, "device", ic.device)))
+    y = df_from_f64(ic.contiguous())
+    if a is None and b is None and c is None:
+        a, b, c = rk4_tableau()
+    time, tts, dts = _directed_grid(t0, t, dt, forward)
+
+    if _is_rk4(a, b, c):
+        if isinstance(f, DfTendency) and y[0].is_cuda:
+            recs = _fused_df_loop(f, y, dts, write_steps)
+        else:
+            recs = _step_loop(make_df_rk4_step_dynamic(f), y, tts, dts,
+                              write_steps, df_to_f64)
     else:
-        rec_times, traj = time[-1], traj[..., -1]
-    return rec_times, (traj.squeeze() if squeeze else traj)
+        recs = _step_loop(make_df_rk_step_dynamic(f, a, b, c), y, tts, dts,
+                          write_steps, df_to_f64)
+    return _finish(time, recs, forward, write_steps, squeeze)

@@ -3,10 +3,11 @@ Build of the CUDA kernels
 =========================
 
 The kernels in ``qgs_tpu_torch/csrc/`` have a plain C interface and include
-no PyTorch headers.  At first use they are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library under ``qgs_tpu_torch/_build/`` (named by
-a hash of the sources, so an edited source is rebuilt) and loaded with
-:mod:`ctypes`.  Nothing is built at import time.
+no PyTorch headers.  At first use each source is compiled with ``nvcc`` for
+Hopper (``sm_90a``), all at once in parallel, and the objects are linked into
+one shared library under ``qgs_tpu_torch/_build/`` (named by a hash of the
+sources, so an edited source is rebuilt), loaded with :mod:`ctypes`.
+Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rk4_fused.cu",)
+SOURCES = ("rk4_fused.cu", "rk4_df_fused.cu")
+# flags of each source's compile (the link adds -shared)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""          # nvcc's output of the last build in this process
@@ -47,6 +49,9 @@ def _declare(lib):
         fn.argtypes = [ptr, ptr, ptr, i32, i32, ptr, i32, ptr, i32, i32, ptr,
                        ptr]
         fn.restype = i32
+    lib.qgs_rk4_df_fused.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr,
+                                     i32, ptr, i32, i32, ptr, ptr, ptr]
+    lib.qgs_rk4_df_fused.restype = i32
     lib.qgs_cuda_error_string.argtypes = [i32]
     lib.qgs_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -63,16 +68,41 @@ def load_library():
     so = BUILD_DIR / f"libqgs_kernels_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, so)
+        tag = f"{digest}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{p.stem}_{tag}.o" for p in srcs]
+        try:
+            build_log = _compile_and_link(srcs, objs, so)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
     _lib = _declare(ctypes.CDLL(str(so)))
     return _lib
+
+
+def _compile_and_link(srcs, objs, so):
+    """One ``nvcc -c`` per source, all started together, then one link;
+    returns nvcc's output."""
+    jobs = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in jobs]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(jobs, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = "".join(outs) + proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, so)
+    return log
 
 
 def error_string(err):

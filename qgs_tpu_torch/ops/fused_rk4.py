@@ -89,6 +89,41 @@ def fused_rk4_reference(f, y, dts, write_every=0):
     return y, y.new_empty((0,) + tuple(y.shape))
 
 
+def check_steps(y, dts, write_every):
+    """The checks the fused kernels' wrappers share: ``dts`` and
+    ``write_every`` as the kernels read them, and the kernels' int32
+    counts."""
+    if (dts.dtype != torch.float64 or dts.dim() != 1
+            or dts.device != y.device or not dts.is_contiguous()):
+        raise ValueError("dts must be a contiguous 1-D float64 tensor on the "
+                         "state's device")
+    if write_every < 0:
+        raise ValueError(f"write_every = {write_every} < 0")
+    if y.shape[0] >= 1 << 31 or dts.numel() >= 1 << 31:
+        raise ValueError("batch or step count exceeds the kernel's int32")
+
+
+def start_run(y, n_steps, write_every):
+    """A copy of ``y`` for a kernel to advance in place, and its empty
+    records (n_steps // write_every, B, n)."""
+    n_rec = n_steps // write_every if write_every else 0
+    return y.clone(), y.new_empty((n_rec,) + tuple(y.shape))
+
+
+def device_layout(f, device):
+    """:func:`csr_layout` of the module ``f``'s tensor: ``row_ptr`` and
+    ``jk`` on ``device``, the values as float64 on the host."""
+    row_ptr, jk, vals = csr_layout(f.coords, f.data, f.shape)
+    return (torch.as_tensor(row_ptr, device=device),
+            torch.as_tensor(jk, device=device), vals)
+
+
+def raise_on_error(err, kernel):
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
+                           f"({_build.error_string(err)})")
+
+
 def _check(f, y, dts, write_every):
     if not hasattr(f, "coords"):
         raise TypeError("fused_rk4 needs a Tendency module (it carries the "
@@ -104,14 +139,7 @@ def _check(f, y, dts, write_every):
                          f"{f.shape[0] - 1})")
     if not y.is_contiguous():
         raise ValueError("state must be contiguous")
-    if (dts.dtype != torch.float64 or dts.dim() != 1
-            or dts.device != y.device or not dts.is_contiguous()):
-        raise ValueError("dts must be a contiguous 1-D float64 tensor on the "
-                         "state's device")
-    if write_every < 0:
-        raise ValueError(f"write_every = {write_every} < 0")
-    if y.shape[0] >= 1 << 31 or dts.numel() >= 1 << 31:
-        raise ValueError("batch or step count exceeds the kernel's int32")
+    check_steps(y, dts, write_every)
 
 
 def fused_rk4(f, y, dts, write_every=0):
@@ -129,18 +157,13 @@ def fused_rk4(f, y, dts, write_every=0):
     if y.device.type != "cuda":
         raise ValueError(f"fused_rk4 runs on CUDA or CPU, not {y.device}")
     _check(f, y, dts, write_every)
-    B, n = y.shape
+    B = y.shape[0]
     n_steps = dts.numel()
-    out = torch.empty_like(y)
-    out.copy_(y)
-    records = torch.empty((n_steps // write_every if write_every else 0, B, n),
-                          dtype=y.dtype, device=y.device)
+    out, records = start_run(y, n_steps, write_every)
     if B == 0 or n_steps == 0:
         return out, records
 
-    row_ptr, jk, vals = csr_layout(f.coords, f.data, f.shape)
-    row_ptr = torch.as_tensor(row_ptr, device=y.device)
-    jk = torch.as_tensor(jk, device=y.device)
+    row_ptr, jk, vals = device_layout(f, y.device)
     vals = torch.as_tensor(vals, dtype=y.dtype, device=y.device)
     lib = _build.load_library()
     with torch.cuda.device(y.device):
@@ -149,8 +172,6 @@ def fused_rk4(f, y, dts, write_every=0):
             jk.numel(), out.data_ptr(), B, dts.data_ptr(), n_steps,
             write_every, records.data_ptr(),
             torch.cuda.current_stream(y.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rk4_fused launch failed: CUDA error {err} "
-                           f"({_build.error_string(err)})")
+    raise_on_error(err, "rk4_fused")
     launches += 1
     return out, records

@@ -1,0 +1,271 @@
+"""
+Double-float arithmetic, contraction and RK steps
+=================================================
+
+Counterpart of :mod:`qgs_tpu.ops.twofloat` for the ``precision='twofloat'``
+trajectory integration.  A value is an unevaluated sum ``hi + lo`` of two
+float32 tensors, carried as a ``(hi, lo)`` pair; the error-free
+transformations (Knuth two-sum, Dekker product with a bitmask split) give
+about 48 bits of mantissa.
+
+* The EFTs and double-float ops follow the JAX package's formulas and
+  operation order.  Eager PyTorch rounds every operation on its own and
+  contracts nothing into an FMA, so the JAX package's optimization barriers
+  (and ``no_barriers``) have no counterpart here.
+* :class:`DfTendency` is the double-float tendency contraction over the
+  row-padded layout of :mod:`qgs_tpu_torch.ops.contraction`; every op is
+  renormalized (the JAX package's ``accumulate='strict'``).
+* :func:`make_df_rk4_step_dynamic` and :func:`make_df_rk_step_dynamic` are
+  the double-float RK steps ``step(y, tt, dt) -> y_new`` over a function
+  ``f(y_hi, y_lo) -> (f_hi, f_lo)``.  The fused kernel ``csrc/rk4_df_fused.cu``
+  computes the RK4 one (:mod:`qgs_tpu_torch.ops.fused_df_rk4`).
+
+Rank-5 tensors and the double-float tangent system are not ported yet
+(ROADMAP queue 1, items 7 and 8).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from qgs_tpu_torch.ops.contraction import _check_rank3, row_padded
+
+
+# ---------------------------------------------------------------------------
+# error-free transformations (float32 in, float32 out)
+# ---------------------------------------------------------------------------
+
+def two_sum(a, b):
+    """Knuth two-sum: ``s + err == a + b`` exactly."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def quick_two_sum(a, b):
+    """Fast two-sum, for ``|a| >= |b|``."""
+    s = a + b
+    return s, b - (s - a)
+
+
+def split(a):
+    """Split a float32 into two halves of at most 12 mantissa bits, ``hi +
+    lo == a`` exactly, by masking the low 12 mantissa bits (``0xFFFFF000``,
+    which is -4096 as int32)."""
+    hi = (a.view(torch.int32) & -4096).view(torch.float32)
+    return hi, a - hi
+
+
+def two_prod(a, b):
+    """Dekker product: ``p + err == a * b`` exactly."""
+    p = a * b
+    ahi, alo = split(a)
+    bhi, blo = split(b)
+    err = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo
+    return p, err
+
+
+# ---------------------------------------------------------------------------
+# double-float ops on (hi, lo) pairs
+# ---------------------------------------------------------------------------
+
+def df_add(x, y):
+    s, e = two_sum(x[0], y[0])
+    e = e + x[1] + y[1]
+    return quick_two_sum(s, e)
+
+
+def df_mul(x, y):
+    p, e = two_prod(x[0], y[0])
+    e = e + x[0] * y[1] + x[1] * y[0]
+    return quick_two_sum(p, e)
+
+
+def df_scale(x, c):
+    """Multiply by a float32 scalar ``c`` that is exactly representable."""
+    c = torch.full_like(x[0], c)
+    p, e = two_prod(x[0], c)
+    e = e + x[1] * c
+    return quick_two_sum(p, e)
+
+
+def df_from_f64(a):
+    """float64 tensor -> (hi, lo) float32 pair."""
+    hi = a.float()
+    return hi, (a - hi.double()).float()
+
+
+def df_to_f64(x):
+    return x[0].double() + x[1].double()
+
+
+def df_const(value, device="cpu"):
+    """Python float -> scalar (hi, lo) pair of 0-d float32 tensors."""
+    hi = np.float32(value)
+    lo = np.float32(value - np.float64(hi))
+    return (torch.tensor(hi, device=device), torch.tensor(lo, device=device))
+
+
+def df_div_scalar(x, c):
+    """Divide a pair by an exactly representable float32 scalar: one
+    rounded quotient, corrected by the exact remainder."""
+    c = torch.full_like(x[0], c)        # a true division, not a reciprocal
+    q = x[0] / c
+    p, e = two_prod(q, c)
+    r = ((x[0] - p) - e + x[1]) / c
+    return quick_two_sum(q, r)
+
+
+def df_reduce_last(x):
+    """Pairwise double-float sum over the last axis (any width): the first
+    half is added to the second, and an odd width carries its last lane to
+    a final combine, as the JAX package's ``df_reduce_last``."""
+    hi, lo = x
+    width = hi.shape[-1]
+    carries = []
+    while width > 1:
+        half = width // 2
+        if width % 2:
+            carries.append((hi[..., -1], lo[..., -1]))
+        hi, lo = df_add((hi[..., :half], lo[..., :half]),
+                        (hi[..., half:2 * half], lo[..., half:2 * half]))
+        width = half
+    out = (hi[..., 0], lo[..., 0])
+    for c in carries:
+        out = df_add(out, c)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# double-float tendency contraction
+# ---------------------------------------------------------------------------
+
+def split_values(vals):
+    """float64 tensor values -> their (hi, lo) float32 split, on the host."""
+    vals = np.asarray(vals, np.float64)
+    vhi = vals.astype(np.float32)
+    return vhi, (vals - vhi.astype(np.float64)).astype(np.float32)
+
+
+class DfTendency(nn.Module):
+    """Double-float tendency ``f(y_hi, y_lo) -> (f_hi, f_lo)``: (B, n)
+    pairs in and out, ``f_i = sum_e v_e xx[j_e] xx[k_e]`` over ``xx = [1,
+    y]`` (the dummy's lo is 0), of a rank-3 tensor given as COO arrays
+    ``coords`` (3, nnz), ``data`` (nnz,) and ``shape`` (n1, n1, n1), such as
+    the JAX package's ``QgsTensor.tensor``.
+
+    Each output row's entries are padded to a common count R (value 0,
+    index 0); every slot is ``(v * xx[j]) * xx[k]`` in double-float, and the
+    slots are summed by :func:`df_reduce_last`.  The host arrays stay on the
+    module (``coords``, ``data``, ``shape``) for the fused kernel to build
+    its own layout from."""
+
+    def __init__(self, coords, data, shape, device="cpu"):
+        super().__init__()
+        _check_rank3(shape)
+        coords = np.asarray(coords, np.int64)
+        data = np.asarray(data, np.float64)
+        n = int(shape[0]) - 1
+        keep = coords[0] != 0            # output row 0 is the dummy: dropped
+        vals, (idx_j, idx_k) = row_padded(coords[0][keep] - 1, n,
+                                          [coords[1][keep], coords[2][keep]],
+                                          data[keep])
+        vhi, vlo = split_values(vals)
+        for name, a in (("vhi", vhi), ("vlo", vlo), ("idx_j", idx_j),
+                        ("idx_k", idx_k)):
+            self.register_buffer(name, torch.as_tensor(a, device=device))
+        self.coords, self.data = coords, data
+        self.shape = tuple(int(s) for s in shape)
+
+    @property
+    def device(self):
+        return self.vhi.device
+
+    def forward(self, y_hi, y_lo):
+        xx_hi = torch.cat([torch.ones_like(y_hi[:, :1]), y_hi], dim=1)
+        xx_lo = torch.cat([torch.zeros_like(y_lo[:, :1]), y_lo], dim=1)
+        xj = (xx_hi[:, self.idx_j], xx_lo[:, self.idx_j])     # (B, n, R)
+        xk = (xx_hi[:, self.idx_k], xx_lo[:, self.idx_k])
+        t = df_mul(df_mul((self.vhi, self.vlo), xj), xk)
+        return df_reduce_last(t)
+
+
+# ---------------------------------------------------------------------------
+# double-float Runge-Kutta steps
+# ---------------------------------------------------------------------------
+
+def _axpy(y, c, k):
+    """``y + c * k`` in double-float, ``c`` a scalar pair."""
+    return df_add(y, df_mul(k, c))
+
+
+def _check_explicit_tableau(a, b, c):
+    """Validate an explicit Butcher tableau (strictly lower-triangular
+    ``a``) for the double-float steps; returns float64 arrays."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = len(b)
+    if a.shape != (s, s) or c.shape != (s,):
+        raise ValueError(
+            f"inconsistent Butcher tableau shapes: a {a.shape}, b ({s},), "
+            f"c {c.shape}")
+    if np.any(np.triu(a) != 0.0):
+        raise ValueError(
+            "precision='twofloat' supports explicit Runge-Kutta tableaux "
+            "only (a must be strictly lower triangular)")
+    return a, b, c
+
+
+def make_df_rk4_step_dynamic(f):
+    """Classical RK4 step ``step(y, tt, dt) -> y_new`` in double-float over
+    ``f(y_hi, y_lo) -> (f_hi, f_lo)``, ``y`` a (B, n) pair, ``dt`` a float64
+    scalar split into a pair by :func:`df_const`.  ``half_dt`` is the exact ``0.5 *
+    (hi, lo)``, ``sixth_dt`` is ``df_div_scalar(dt, 6)``, and the combine is
+    ``y + sixth_dt * ((k1 + k4) + 2 (k2 + k3))``, as the JAX package's
+    ``_df_rk4_core``.  The model is autonomous: ``tt`` is unused."""
+    def step(y, tt, dt):
+        del tt
+        dt_df = df_const(float(dt), y[0].device)
+        half_dt = (0.5 * dt_df[0], 0.5 * dt_df[1])
+        sixth_dt = df_div_scalar(dt_df, 6.0)
+        k1 = f(*y)
+        k2 = f(*_axpy(y, half_dt, k1))
+        k3 = f(*_axpy(y, half_dt, k2))
+        k4 = f(*_axpy(y, dt_df, k3))
+        ksum = df_add(df_add(k1, k4), df_scale(df_add(k2, k3), 2.0))
+        return _axpy(y, sixth_dt, ksum)
+
+    return step
+
+
+def make_df_rk_step_dynamic(f, a, b, c):
+    """Double-float RK step ``step(y, tt, dt) -> y_new`` for any explicit
+    Butcher tableau: each coefficient is split into an exact pair on the
+    host and ``dt * coeff`` is a scalar double-float product."""
+    a, b, c = _check_explicit_tableau(a, b, c)
+    s = len(b)
+
+    def step(y, tt, dt):
+        del tt                       # every qgs tendency is autonomous
+        device = y[0].device
+        dt_df = df_const(float(dt), device)
+        k = []
+        for i in range(s):
+            y_s = y
+            for l in range(i):
+                if a[i, l] != 0.0:
+                    y_s = _axpy(y_s, df_mul(dt_df, df_const(a[i, l], device)),
+                                k[l])
+            k.append(f(*y_s))
+        y_new = y
+        for i in range(s):
+            if b[i] != 0.0:
+                y_new = _axpy(y_new, df_mul(dt_df, df_const(b[i], device)),
+                              k[i])
+        return y_new
+
+    return step

@@ -109,13 +109,6 @@ def test_initialize_draws_from_the_given_rng():
         integ.initialize(2., 0.1, number_of_trajectories=3)
 
 
-def test_twofloat_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="item 6.*K2"):
-        RungeKuttaIntegrator(precision="twofloat")
-    with pytest.raises(ValueError, match="unknown precision"):
-        RungeKuttaIntegrator(precision="float32")
-
-
 def test_cpu_integration_launches_no_kernel(both):
     pars, _, f_port = both
     ic = np.random.default_rng(9).random((2, pars.ndim)) * 0.01

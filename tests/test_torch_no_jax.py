@@ -1,5 +1,6 @@
 """The port runs where JAX is absent: a subprocess with ``jax`` blocked
-imports ``qgs_tpu_torch``, builds MAOOAM and integrates 10 steps on the CPU;
+imports ``qgs_tpu_torch``, builds MAOOAM and integrates 10 steps on the CPU
+in float64 and in twofloat;
 and no source file of the port imports JAX."""
 
 import os
@@ -31,6 +32,11 @@ integ.integrate(0., 1., 0.1,
                 write_steps=5)
 t, traj = integ.get_trajectories()
 assert tuple(traj.shape) == (4, 36, 3) and bool(traj.isfinite().all())
+df = RungeKuttaIntegrator(precision="twofloat")
+df.set_func(f)
+df.integrate(0., 1., 0.1, ic=np.random.default_rng(0).random((4, pars.ndim))
+             * 0.01, write_steps=5)
+assert bool((df.get_trajectories()[1] - traj).abs().max() < 1e-12)
 assert sys.modules["jax"] is None
 print("OK", sorted(m for m in sys.modules if m.split(".")[0] == "jax"))
 """
