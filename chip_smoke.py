@@ -4,7 +4,8 @@ Smoke run of the PyTorch/CUDA port on one NVIDIA GPU
 ====================================================
 
 Drives the port's main paths (``qgs_tpu_torch``) once each on the card: the
-MAOOAM configuration (ndim 36) -> ``create_tendencies(device="cuda")`` ->
+MAOOAM configuration (ndim 36) -> ``create_tendencies`` (on the card by
+default) ->
 ``RungeKuttaIntegrator.integrate`` of a 4096-member ensemble, in float64
 through the fused RK4 kernel and with ``precision="twofloat"`` through the
 fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
@@ -13,15 +14,20 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
 2. build: compiles ``qgs_tpu_torch/csrc/rk4_fused.cu`` and
    ``rk4_df_fused.cu`` with nvcc (sm_90a), in parallel;
 3. each kernel against its plain PyTorch version on the card (the RK4
-   kernel in float64 and float32, the double-float one on pairs), and the
-   integrator's kernel routes against its plain routes;
+   kernel in float64 and float32 for every choice of row groups G at
+   B = 1, 31, 1000 and 4097, the double-float one on pairs), and the
+   integrator's kernel routes against their plain routes;
 4. the main paths, float64 then twofloat, with the kernels' launch counts
    reset just before each; each whole trajectory is held against the plain
    float64 version at the same shapes;
-5. times of each kernel and of its plain version at B = 16384, 1000 steps.
+5. times of each kernel and of its plain version at B = 16384, 1000 steps,
+   of the RK4 kernel at the float64 main path's shapes, and of the RK4
+   kernel for every G at B = 4096 and 16384, with each kernel's bound (the least time the card could take for its operations
+   or bytes) and its share of that bound.
 
 Every failed phase exits nonzero before the last line, which is one JSON
-object ``{"ok": true, "device": {...}}``.  Run from the repository root:
+object ``{"ok": true, "device": {...}}``; the line before it holds each
+kernel's numbers, ``{"kernels": [...]}``.  Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -34,14 +40,17 @@ import time
 
 import numpy as np
 
-# the smoke run never needs the JAX reference: keep its package's import of
-# jax off even where jax happens to be installed
-os.environ.setdefault("QGS_TPU_X64", "0")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 TOL64 = dict(rtol=1e-9, atol=1e-11)    # float64: only the summation order
                                        # and FMA contraction differ
 TOL32 = dict(rtol=1e-4, atol=1e-6)     # float32 kernel vs float64 plain
+
+# peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet): vector f64
+# and f32 (the kernels' sparse gathers cannot use the tensor cores), and the
+# device memory's rate
+PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg):
@@ -73,6 +82,51 @@ def cuda_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+def bound(flops, n_bytes, peak_flops):
+    """The least time in ms the card could take for ``flops`` operations at
+    ``peak_flops`` and ``n_bytes`` of device memory traffic, and which of
+    the two bounds it."""
+    t_ops, t_bytes = flops / peak_flops, n_bytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def entry_ops(coords, costs):
+    """Operations of one tendency evaluation of the rank-3 COO tensor
+    ``coords`` (output row 0, the dummy, dropped), and its entry count.
+    Since ``xx[0] = 1``, an entry costs ``costs[z]``, z the number of its
+    indices j, k that are 0: a quadratic term, a linear one (no product by
+    the 1) or a constant one."""
+    coords = np.asarray(coords)
+    keep = coords[0] != 0
+    zeros = (coords[1][keep] == 0).astype(int) + (coords[2][keep] == 0)
+    return int(np.asarray(costs)[zeros].sum()), int(keep.sum())
+
+
+def rk4_work(B, n, coords, steps, itemsize):
+    """Operations and device-memory bytes of ``steps`` RK4 steps of B
+    trajectories, with no records: each step four tendency evaluations (3
+    operations a quadratic entry, 2 a linear one, 1 a constant one) and the
+    combine, 14 operations a variable; bytes: the state read and written,
+    the step sizes and the tensor (index and value), each once."""
+    ops, nnz = entry_ops(coords, (3, 2, 1))
+    flops = B * steps * (4 * ops + 14 * n)
+    n_bytes = 2 * itemsize * B * n + 8 * steps + nnz * (8 + itemsize)
+    return flops, n_bytes
+
+
+def df_rk4_work(B, n, coords, steps):
+    """The same for the double-float kernel, in float32 operations: a
+    double-float product costs 10 and an add 11, so a quadratic entry 31, a
+    linear one 21 and a constant one 11, and the combine 125 a variable a
+    step (``rk4_df_fused.cu``); the state and the values are (hi, lo)
+    pairs."""
+    ops, nnz = entry_ops(coords, (31, 21, 11))
+    flops = B * steps * (4 * ops + 125 * n)
+    n_bytes = 2 * 8 * B * n + 8 * steps + nnz * 12
+    return flops, n_bytes
 
 
 def maooam_params(QgParams):
@@ -145,17 +199,25 @@ def main():
 
     grid = time_grid(0., 30.05, 0.1)                 # shorter last step
     dts = torch.as_tensor(np.diff(grid), device=dev)
+    dts100 = dts[:100].contiguous()
+    errs64, errs32 = [], []
+    for B in (1, 31, 1000, 4097):                    # ragged last blocks
+        yg = torch.as_tensor(np.random.default_rng(B).random((B, n)) * 0.01,
+                             device=dev)
+        yr, rr = fused_rk4.fused_rk4_reference(f64, yg, dts, 7)
+        yr100, _ = fused_rk4.fused_rk4_reference(f64, yg, dts100, 0)
+        for G in fused_rk4.GROUPS:
+            yk, rk = fused_rk4.fused_rk4(f64, yg, dts, 7, groups=G)
+            errs64.append(check_close(f"f64 G={G} B={B} 301 steps final", yk,
+                                      yr, TOL64))
+            errs64.append(check_close(f"f64 G={G} B={B} records every 7", rk,
+                                      rr, TOL64))
+            yk32, _ = fused_rk4.fused_rk4(f32, yg.float(), dts100, 0,
+                                          groups=G)
+            errs32.append(check_close(f"f32 G={G} B={B} 100 steps vs f64 "
+                                      "plain", yk32, yr100, TOL32))
     y0 = torch.as_tensor(np.random.default_rng(1).random((1000, n)) * 0.01,
                          device=dev)
-    yk, rk = fused_rk4.fused_rk4(f64, y0, dts, 7)
-    yr, rr = fused_rk4.fused_rk4_reference(f64, y0, dts, 7)
-    check_close("f64 B=1000 301 steps final", yk, yr, TOL64)
-    check_close("f64 B=1000 records every 7", rk, rr, TOL64)
-
-    yk32, _ = fused_rk4.fused_rk4(f32, y0.float(), dts[:100].contiguous(), 0)
-    yr64, _ = fused_rk4.fused_rk4_reference(f64, y0, dts[:100], 0)
-    err32 = check_close("f32 kernel vs f64 plain, 100 steps", yk32, yr64,
-                        TOL32)
 
     tk, trk = integrate_runge_kutta(f64, 0., 30.05, 0.1, y0, write_steps=7)
     tp, trp = integrate_runge_kutta(lambda t, x: f64(t, x), 0., 30.05, 0.1,
@@ -202,8 +264,8 @@ def main():
     dts_main = torch.as_tensor(np.diff(time_grid(0., 1000., 0.1)), device=dev)
     yk, rk = fused_rk4.fused_rk4(f64, ic_dev, dts_main, 100)
     yr, rr = fused_rk4.fused_rk4_reference(f64, ic_dev, dts_main, 100)
-    check_close("f64 B=4096 10000 steps final", yk, yr, TOL64)
-    err64 = check_close("f64 B=4096 records every 100", rk, rr, TOL64)
+    errs64.append(check_close("f64 B=4096 10000 steps final", yk, yr, TOL64))
+    errs64.append(check_close("f64 B=4096 records every 100", rk, rr, TOL64))
     # the plain float64 trajectory of the whole main-path ensemble, which
     # the main paths of both precisions are held against in full
     traj_ref = torch.movedim(torch.cat([ic_dev[None], rr]), 0, -1)
@@ -211,7 +273,7 @@ def main():
     # -- 4. the main path: f, Df from create_tendencies(device="cuda") above
     tp, trp = integrate_runge_kutta(lambda tt, x: f.batched(tt, x), 0.,
                                     1000., 0.1, ic_dev[:8], write_steps=100)
-    launches, err_main = {}, {}
+    launches, err_main, main_s = {}, {}, {}
     for precision, kernel in (("float64", "rk4_fused"),
                               ("twofloat", "rk4_df_fused")):
         integrator = RungeKuttaIntegrator(precision=precision)
@@ -222,12 +284,13 @@ def main():
         integrator.integrate(0., 1000., 0.1, ic=ic, write_steps=100)
         t, traj = integrator.get_trajectories()
         torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
+        main_s[precision] = time.perf_counter() - t0
         counts = {"rk4_fused": fused_rk4.launches,
                   "rk4_df_fused": fused_df_rk4.launches}
         launches[kernel] = counts[kernel]
         print(f"[4] main path {precision}: integrate(0, 1000, 0.1, B=4096, "
-              f"write_steps=100) in {main_s:.3f} s, launches {counts}",
+              f"write_steps=100) in {main_s[precision]:.3f} s, launches "
+              f"{counts}",
               flush=True)
         if counts[kernel] < 1:
             fail(f"the {precision} main path did not launch {kernel}")
@@ -264,6 +327,13 @@ def main():
         "df": (lambda d: fused_df_rk4.fused_df_rk4(fdf, *ybdf, d),
                lambda d: fused_df_rk4.fused_df_rk4_reference(fdf, *ybdf, d)),
     }
+    bounds = {
+        "f64": bound(*rk4_work(B, n, coo.coords, steps, 8),
+                     PEAK_FLOPS["f64"]),
+        "f32": bound(*rk4_work(B, n, coo.coords, steps, 4),
+                     PEAK_FLOPS["f32"]),
+        # double-float runs in float32 operations
+        "df": bound(*df_rk4_work(B, n, coo.coords, steps), PEAK_FLOPS["f32"])}
     for name, (run_kernel, run_plain) in runs.items():
         run_kernel(dts_b[:10])                                   # warm-up
         run_plain(dts_b[:10])
@@ -277,11 +347,41 @@ def main():
               f"({B * steps / kern * 1e3:.4g} traj-steps/s), plain "
               f"{plain:.3f} ms ({B * steps / plain * 1e3:.4g} traj-steps/s); "
               f"runs kernel {kern1:.3f}/{kern2:.3f}, plain "
-              f"{plain1:.3f}/{plain2:.3f} ms; {card}", flush=True)
+              f"{plain1:.3f}/{plain2:.3f} ms; bound {bounds[name][0]:.3f} ms "
+              f"({bounds[name][1]}), share of bound "
+              f"{bounds[name][0] / kern:.4f}; {card}", flush=True)
 
-    jax_mod = sys.modules.get("jax")
-    if jax_mod is not None:
-        fail("jax was imported during the smoke run")
+    # the RK4 kernel alone at the float64 main path's shapes, in this call,
+    # against that path's wall clock
+    main_kernel_ms = min(cuda_ms(lambda: fused_rk4.fused_rk4(
+        f64, ic_dev, dts_main, 100)) for _ in range(2))
+    print(f"[5] f64 kernel at the main path's shapes (B=4096, 10000 steps, "
+          f"a record every 100): {main_kernel_ms:.3f} ms; the main path "
+          f"took {main_s['float64'] * 1e3:.3f} ms; {card}", flush=True)
+
+    # the RK4 kernel for every G, in turns (G ascending, then descending)
+    per_g = {}
+    for Bg in (4096, 16384):
+        yg = yb[:Bg].contiguous()
+        for name, fn, y_in in (("f64", f64, yg), ("f32", f32, yg.float())):
+            for G in fused_rk4.GROUPS:
+                fused_rk4.fused_rk4(fn, y_in, dts_b[:10], groups=G)
+            runs_g = {G: [] for G in fused_rk4.GROUPS}
+            for G in fused_rk4.GROUPS + fused_rk4.GROUPS[::-1]:
+                runs_g[G].append(cuda_ms(lambda: fused_rk4.fused_rk4(
+                    fn, y_in, dts_b, groups=G)))
+            b_ms, _ = bound(*rk4_work(Bg, n, coo.coords, steps,
+                                      y_in.element_size()), PEAK_FLOPS[name])
+            for G, rs in runs_g.items():
+                per_g[f"{name} B={Bg} G={G}"] = min(rs)
+                print(f"[5] per G: {name} B={Bg} {steps} steps G={G}: "
+                      f"{min(rs):.3f} ms (runs {rs[0]:.3f}/{rs[1]:.3f}), "
+                      f"bound {b_ms:.3f} ms, share {b_ms / min(rs):.4f}; "
+                      f"{card}", flush=True)
+
+    leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
+    if leaked:
+        fail(f"{' and '.join(leaked)} got imported during the smoke run")
 
     kernels = [{
         "name": "rk4_fused",
@@ -289,14 +389,25 @@ def main():
         "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
         "launches": launches["rk4_fused"],
-        "max_abs_err": err64,
+        "max_abs_err": max(errs64),
         "ms": times["f64"][0],
         "plain_ms": times["f64"][1],
-        "shape": f"B={B} n={n} steps={steps} float64",
+        "bound_ms": bounds["f64"][0],
+        "bound_by": bounds["f64"][1],
+        "share_of_bound": bounds["f64"][0] / times["f64"][0],
+        "library_ms": None,
+        "shape": f"B={B} n={n} steps={steps} float64, "
+                 f"G={fused_rk4.DEFAULT_GROUPS}",
         "main_path_max_abs_err_vs_f64": err_main["float64"][1],
-        "f32_max_abs_err": err32,
+        "main_path_s": main_s["float64"],
+        "main_path_kernel_ms": main_kernel_ms,
+        "f32_max_abs_err": max(errs32),
         "f32_ms": times["f32"][0],
         "f32_plain_ms": times["f32"][1],
+        "f32_bound_ms": bounds["f32"][0],
+        "f32_share_of_bound": bounds["f32"][0] / times["f32"][0],
+        "ms_per_groups": per_g,
+        "card": card,
     }, {
         "name": "rk4_df_fused",
         "route": "cuda",
@@ -306,9 +417,15 @@ def main():
         "max_abs_err": err_df,
         "ms": times["df"][0],
         "plain_ms": times["df"][1],
+        "bound_ms": bounds["df"][0],
+        "bound_by": bounds["df"][1],
+        "share_of_bound": bounds["df"][0] / times["df"][0],
+        "library_ms": None,
         "shape": f"B={B} n={n} steps={steps} double-float",
         "main_path_max_abs_err_vs_f64": err_main["twofloat"][1],
         "main_path_members_0_7_max_abs_err_vs_f64": err_main["twofloat"][0],
+        "main_path_s": main_s["twofloat"],
+        "card": card,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,24 +2,15 @@
 qgs-tpu-torch: the PyTorch/CUDA port of qgs-tpu
 ===============================================
 
-A second implementation of the qgs-tpu device compute path in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper.  Module paths mirror
-``qgs_tpu/`` so that each module's counterpart is easy to find.  The host
-setup layers (parameters, basis, inner products, tendency tensor) are the
-JAX package's own NumPy/SymPy code, imported through
-:mod:`qgs_tpu_torch.host`; nothing in this package imports JAX.
+A second implementation of qgs-tpu in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper.  Module paths mirror ``qgs_tpu/`` so that each
+module's counterpart is easy to find.  The host setup layers (parameters,
+basis, inner products, tendency tensor; NumPy/SymPy) are the package's own
+copies, re-exported by :mod:`qgs_tpu_torch.host`.  Nothing in this package
+imports JAX or the JAX package.
 
-Importing ``qgs_tpu`` runs ``import jax`` unless ``QGS_TPU_X64=0`` is set
-(``qgs_tpu/__init__.py``).  Where JAX is not installed, this package sets
-that variable before anything touches ``qgs_tpu``; where JAX is installed
-(the parity tests run both packages in one process) the environment is left
-alone, so the JAX reference keeps float64.
+Modules that build tensors put them on ``device="cuda"`` unless the caller
+passes another device (``device="cpu"`` for the CPU).
 """
-
-import importlib.util
-import os
-
-if importlib.util.find_spec("jax") is None:
-    os.environ.setdefault("QGS_TPU_X64", "0")
 
 __version__ = "0.1.0"

@@ -2,23 +2,23 @@
 Host setup layers
 =================
 
-The parameters, inner products, tendency tensor and COO container are the
-JAX package's own NumPy/SymPy code, re-exported here unchanged.  Import them
-from this module (and not from ``qgs_tpu`` directly) so that the package's
-JAX-absent guard in :mod:`qgs_tpu_torch` has run first.
+The parameters, inner products, tendency tensor and COO container: the
+port's own copies of the JAX package's NumPy/SymPy modules, under the same
+paths (``qgs_tpu_torch.params``, ``.basis``, ``.inner_products``,
+``.tensors``, ``.utils``), re-exported here for the port's call sites.
 """
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.inner_products.analytic import (
+from qgs_tpu_torch.params.params import QgParams
+from qgs_tpu_torch.inner_products.analytic import (
     AtmosphericAnalyticInnerProducts, GroundAnalyticInnerProducts,
     OceanicAnalyticInnerProducts,
 )
-from qgs_tpu.inner_products.symbolic import (
+from qgs_tpu_torch.inner_products.symbolic import (
     AtmosphericSymbolicInnerProducts, GroundSymbolicInnerProducts,
     OceanicSymbolicInnerProducts,
 )
-from qgs_tpu.tensors.qgtensor import QgsTensor
-from qgs_tpu.utils.sparse import COO
+from qgs_tpu_torch.tensors.qgtensor import QgsTensor
+from qgs_tpu_torch.utils.sparse import COO
 
 __all__ = [
     "QgParams",

@@ -102,10 +102,15 @@ class RungeKuttaIntegrator:
                 "step runs the model's tensor, and a plain callable would be "
                 "silently ignored")
         if self._df_func is None:
+            device = getattr(self.func, "device", None)
+            if device is None:
+                raise RuntimeError(
+                    "precision='twofloat' runs on the tendency function's "
+                    "device, and this function carries none: build it with "
+                    "create_tendencies")
             t = self._qgtensor.tensor
             self._df_func = DfTendency(t.coords, t.data, t.shape,
-                                       device=getattr(self.func, "device",
-                                                      "cpu"))
+                                       device=device)
         return self._df_func
 
     # -- attractor initialization ------------------------------------------

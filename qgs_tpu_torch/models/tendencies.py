@@ -3,8 +3,8 @@ Tendencies factory
 ==================
 
 Counterpart of :mod:`qgs_tpu.models.tendencies`: ``create_tendencies``
-builds the inner products and the tendency tensor on the host (the JAX
-package's NumPy/SymPy layers) and returns the PyTorch tendency ``f(t, x)``
+builds the inner products and the tendency tensor on the host (the port's
+NumPy/SymPy layers, :mod:`qgs_tpu_torch.host`) and returns the PyTorch tendency ``f(t, x)``
 and Jacobian ``Df(t, x)`` on single states, with their batched versions
 attached as ``.batched`` and the tensor object as ``.qgtensor``.
 """
@@ -64,13 +64,15 @@ def build_tensor(params, aip, oip, gip):
 
 def create_tendencies(params, return_inner_products=False,
                       return_qgtensor=False, mode="auto",
-                      dtype=torch.float64, device="cpu"):
+                      dtype=torch.float64, device="cuda"):
     """Build the tendencies ``f(t, x)`` and Jacobian ``Df(t, x)``.
 
     Both returned modules operate on single states (shape (ndim,)) like the
     reference; batched versions over a leading ensemble axis are attached as
-    ``f.batched`` / ``Df.batched``.  Their buffers live on ``device`` in
-    ``dtype``; an integrator given ``f`` integrates there, in that dtype.
+    ``f.batched`` / ``Df.batched``.  Their buffers live on ``device`` (the
+    CUDA card unless another device is asked for, ``device="cpu"`` for the
+    CPU; without a card the default raises) in ``dtype``; an integrator
+    given ``f`` integrates there, in that dtype.
     """
     aip, oip, gip = _build_inner_products(params)
     agotensor = build_tensor(params, aip, oip, gip)

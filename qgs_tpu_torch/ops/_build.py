@@ -46,8 +46,8 @@ def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("qgs_rk4_fused_f32", "qgs_rk4_fused_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, ptr, i32, ptr, i32, i32, ptr,
-                       ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32,
+                       i32, ptr, ptr]
         fn.restype = i32
     lib.qgs_rk4_df_fused.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr,
                                      i32, ptr, i32, i32, ptr, ptr, ptr]

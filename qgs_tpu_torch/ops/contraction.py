@@ -103,7 +103,8 @@ class Tendency(_RowPaddedContraction):
     (n1, n1, n1).  The host arrays stay on the module (``coords``, ``data``,
     ``shape``) for the fused RK4 kernel to build its own layout from."""
 
-    def __init__(self, coords, data, shape, dtype=torch.float64, device="cpu"):
+    def __init__(self, coords, data, shape, dtype=torch.float64,
+                 device="cuda"):
         _check_rank3(shape)
         coords = np.asarray(coords, np.int64)
         data = np.asarray(data, np.float64)
@@ -123,7 +124,8 @@ class Jacobian(_RowPaddedContraction):
     ``(i, m) = (coords[0, e], coords[1, e])`` (the JAX package's
     ``make_coo_jacobian`` convention)."""
 
-    def __init__(self, coords, data, shape, dtype=torch.float64, device="cpu"):
+    def __init__(self, coords, data, shape, dtype=torch.float64,
+                 device="cuda"):
         _check_rank3(shape)
         coords = np.asarray(coords, np.int64)
         data = np.asarray(data, np.float64)
@@ -134,7 +136,7 @@ class Jacobian(_RowPaddedContraction):
         super().__init__(vals, idxs, (n, n), dtype, device)
 
 
-def from_numpy(coords, data, shape, dtype=torch.float64, device="cpu"):
+def from_numpy(coords, data, shape, dtype=torch.float64, device="cuda"):
     """Build the batched tendency module from plain COO arrays (the JAX
     package's ``QgsTensor.tensor.coords/.data/.shape``): the port's
     counterpart of loading weights."""
@@ -142,7 +144,7 @@ def from_numpy(coords, data, shape, dtype=torch.float64, device="cpu"):
 
 
 def make_tendency_fns(tensor, jtensor, mode="auto", dtype=torch.float64,
-                      device="cpu"):
+                      device="cuda"):
     """Build ``(f_batch, jac_batch)`` from a tendency tensor and its
     Jacobian tensor (COO objects, rank 3), as :class:`torch.nn.Module` s:
 

@@ -14,20 +14,52 @@ the state every ``write_every`` steps.
 * :func:`fused_rk4_reference` is the plain PyTorch version: the same RK4
   formula (``qgs_tpu.integrators.rk.make_rk_step``'s, term by term) over the
   plain contraction :class:`~qgs_tpu_torch.ops.contraction.Tendency`.
-* :func:`csr_layout` is the kernel's tensor layout: the COO entries sorted
-  by output row, with CSR row offsets.
+* :func:`group_layout` is the kernel's tensor layout: the output rows
+  split into G groups of about equal entry count, one warp of a block each,
+  every group a flat table of entry records.  :func:`group_tendency`
+  evaluates the tendency through that layout in plain PyTorch, group by
+  group, in the kernel's summation order.
+* :func:`csr_layout` is the row-sorted layout of the double-float kernel
+  (:mod:`qgs_tpu_torch.ops.fused_df_rk4`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from qgs_tpu_torch.ops import _build
+from qgs_tpu_torch.ops.contraction import _with_dummy
 
 launches = 0             # kernel launches in this process (plain runs excluded)
 
 _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
+
+GROUPS = (1, 2, 4, 8)    # the kernel's choices of row groups (warps) a block
+# where the caller sets none: on the H100, G = 8 ties G = 4 at B = 16384 in
+# float64 and is the fastest of GROUPS at B = 4096 and 16384 otherwise
+# (PERF.md, Findings), so no rule on B is needed yet
+DEFAULT_GROUPS = 8
+CHUNK = 2                # entries a chunk: the kernel's partial sums a row
+AHEAD = 1                # chunks the kernel reads past a group's end
+LAST = 1 << 16           # ctl flag: the chunk ends its row
+
+
+class GroupLayout(NamedTuple):
+    """The kernel's tables of entry records, one row of each per group:
+    ``jk`` (G, W) int32 ``j | k << 16``, ``ctl`` (G, W) int32 state row
+    ``i`` (0-based, ``xx`` row ``i + 1``) ``| LAST`` on the row's last
+    chunk, ``vals`` (G, W) float64; ``lengths`` (G,) int32 records of each
+    group (whole chunks); ``group_of_row`` (n,) the group of each state
+    row.  Past each group's length the records are zero, at least
+    :data:`AHEAD` chunks of them (the kernel reads that far ahead)."""
+    jk: np.ndarray
+    ctl: np.ndarray
+    vals: np.ndarray
+    lengths: np.ndarray
+    group_of_row: np.ndarray
 
 
 def csr_layout(coords, data, shape):
@@ -51,6 +83,64 @@ def csr_layout(coords, data, shape):
     row_ptr[1:] = np.cumsum(np.bincount(rows, minlength=n1))
     jk = (j | (k << 16)).astype(np.int32)
     return row_ptr, jk, data[keep][order]
+
+
+def group_layout(coords, data, shape, groups):
+    """Split the output rows of a rank-3 COO tensor into ``groups`` groups
+    for the kernel (a :class:`GroupLayout`).
+
+    Each row's entries (output row 0, the dummy, dropped; COO order kept
+    within a row) are padded with zero entries to whole chunks of
+    :data:`CHUNK`, and a row without entries gets one chunk of them, so
+    that the kernel still writes it.  Rows go to groups longest first, each
+    to the group with the fewest records so far (the lowest such group on
+    a tie); a group lists its rows in increasing order."""
+    row_ptr, jk, vals = csr_layout(coords, data, shape)
+    n = int(shape[0]) - 1
+    counts = np.diff(row_ptr)[1:]
+    padded = np.maximum(-(-counts // CHUNK), 1) * CHUNK
+    load = np.zeros(groups, np.int64)
+    group_of_row = np.empty(n, np.int64)
+    for i in np.argsort(-padded, kind="stable"):
+        g = int(np.argmin(load))
+        group_of_row[i] = g
+        load[g] += padded[i]
+    width = int(load.max(initial=0)) + AHEAD * CHUNK
+    out = GroupLayout(np.zeros((groups, width), np.int32),
+                      np.zeros((groups, width), np.int32),
+                      np.zeros((groups, width)), load.astype(np.int32),
+                      group_of_row)
+    for g in range(groups):
+        pos = 0
+        for i in np.flatnonzero(group_of_row == g):
+            e = slice(row_ptr[i + 1], row_ptr[i + 2])
+            out.jk[g, pos:pos + counts[i]] = jk[e]
+            out.vals[g, pos:pos + counts[i]] = vals[e]
+            out.ctl[g, pos:pos + padded[i]] = i
+            out.ctl[g, pos + padded[i] - CHUNK:pos + padded[i]] |= LAST
+            pos += padded[i]
+    return out
+
+
+def group_tendency(layout, x):
+    """The tendency of the (B, n) state ``x`` through ``layout``, in plain
+    PyTorch and in the kernel's order: group by group, slot ``s`` of each
+    chunk of a row summed in order into partial sum ``s``, the partial sums
+    added at the row's end."""
+    xx = _with_dummy(x)
+    out = torch.zeros_like(x)
+    for g, length in enumerate(layout.lengths.tolist()):
+        jk = torch.as_tensor(layout.jk[g, :length], device=x.device)
+        rows = torch.as_tensor(layout.ctl[g, :length] & (LAST - 1),
+                               device=x.device)
+        vals = torch.as_tensor(layout.vals[g, :length], dtype=x.dtype,
+                               device=x.device)
+        prod = vals * xx[:, jk & 0xffff] * xx[:, jk >> 16]
+        parts = [torch.zeros_like(x).index_add_(1, rows[s::CHUNK],
+                                                prod[:, s::CHUNK])
+                 for s in range(CHUNK)]
+        out += sum(parts[1:], parts[0])
+    return out
 
 
 def scaled_dt(dt, c, dtype):
@@ -142,16 +232,20 @@ def _check(f, y, dts, write_every):
     check_steps(y, dts, write_every)
 
 
-def fused_rk4(f, y, dts, write_every=0):
+def fused_rk4(f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
     """Advance the (B, n) state ``y`` by ``len(dts)`` RK4 steps of the
     tendency module ``f`` (a :class:`~qgs_tpu_torch.ops.contraction.Tendency`)
     in one kernel launch; ``dts`` (n_steps,) float64 on ``y``'s device.
+    ``groups`` (one of :data:`GROUPS`) sets the kernel's row groups a block.
 
     Returns ``(y_final, records)``, records (n_steps // write_every, B, n)
     holding the state after every ``write_every`` steps.  ``y`` is not
     modified.  A CPU state runs :func:`fused_rk4_reference`; a CUDA state
     launches the kernel or raises."""
     global launches
+    if groups not in GROUPS:
+        raise ValueError(f"groups = {groups}: the kernel takes one of "
+                         f"{GROUPS}")
     if y.device.type == "cpu":
         return fused_rk4_reference(f, y, dts, write_every)
     if y.device.type != "cuda":
@@ -163,14 +257,17 @@ def fused_rk4(f, y, dts, write_every=0):
     if B == 0 or n_steps == 0:
         return out, records
 
-    row_ptr, jk, vals = device_layout(f, y.device)
-    vals = torch.as_tensor(vals, dtype=y.dtype, device=y.device)
+    layout = group_layout(f.coords, f.data, f.shape, groups)
+    jk, ctl, lengths = (torch.as_tensor(a, device=y.device)
+                        for a in (layout.jk, layout.ctl, layout.lengths))
+    vals = torch.as_tensor(layout.vals, dtype=y.dtype, device=y.device)
     lib = _build.load_library()
     with torch.cuda.device(y.device):
         err = getattr(lib, _FNS[y.dtype])(
-            row_ptr.data_ptr(), jk.data_ptr(), vals.data_ptr(), f.shape[0],
-            jk.numel(), out.data_ptr(), B, dts.data_ptr(), n_steps,
-            write_every, records.data_ptr(),
+            jk.data_ptr(), ctl.data_ptr(), vals.data_ptr(),
+            lengths.data_ptr(), jk.shape[0], jk.shape[1], f.shape[0],
+            out.data_ptr(), B, dts.data_ptr(), n_steps, write_every,
+            records.data_ptr(),
             torch.cuda.current_stream(y.device).cuda_stream)
     raise_on_error(err, "rk4_fused")
     launches += 1

@@ -102,7 +102,7 @@ def df_to_f64(x):
     return x[0].double() + x[1].double()
 
 
-def df_const(value, device="cpu"):
+def df_const(value, device="cuda"):
     """Python float -> scalar (hi, lo) pair of 0-d float32 tensors."""
     hi = np.float32(value)
     lo = np.float32(value - np.float64(hi))
@@ -163,7 +163,7 @@ class DfTendency(nn.Module):
     module (``coords``, ``data``, ``shape``) for the fused kernel to build
     its own layout from."""
 
-    def __init__(self, coords, data, shape, device="cpu"):
+    def __init__(self, coords, data, shape, device="cuda"):
         super().__init__()
         _check_rank3(shape)
         coords = np.asarray(coords, np.int64)

@@ -13,17 +13,18 @@ from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.ops.contraction import (MODES, from_numpy,
                                            make_tendency_fns, row_padded)
 
-from tests.test_trajectory import _maooam_params, _rp_params
+from tests.test_torch_host import both_params, maooam, rp
 
 TOL = dict(rtol=1e-12, atol=1e-14)
 
 
-@pytest.fixture(scope="module", params=[_maooam_params, _rp_params],
-                ids=["maooam", "rp"])
+@pytest.fixture(scope="module", params=[maooam, rp], ids=["maooam", "rp"])
 def system(request):
-    pars = request.param()
+    """The JAX package's tendencies and tensor, and the port's QgParams of
+    the same configuration."""
+    pars, port_pars = both_params(request.param)
     f, Df, qgt = jax_create_tendencies(pars, return_qgtensor=True)
-    return pars, f, Df, qgt
+    return port_pars, f, Df, qgt
 
 
 def _states(ndim, B=5, seed=0):
@@ -32,7 +33,7 @@ def _states(ndim, B=5, seed=0):
 
 def test_batched_f_and_df_match_jax(system):
     pars, f, Df, qgt = system
-    fp, jp = make_tendency_fns(qgt.tensor, qgt.jacobian_tensor)
+    fp, jp = make_tendency_fns(qgt.tensor, qgt.jacobian_tensor, device="cpu")
     x = _states(pars.ndim)
     xt = torch.as_tensor(x)
     np.testing.assert_allclose(fp(0., xt).numpy(),
@@ -44,7 +45,8 @@ def test_batched_f_and_df_match_jax(system):
 def test_from_numpy_builds_the_same_tendency(system):
     pars, f, _, qgt = system
     t = qgt.tensor
-    fp = from_numpy(np.asarray(t.coords), np.asarray(t.data), t.shape)
+    fp = from_numpy(np.asarray(t.coords), np.asarray(t.data), t.shape,
+                    device="cpu")
     assert fp.dtype == torch.float64 and fp.device.type == "cpu"
     x = _states(pars.ndim, seed=1)
     np.testing.assert_allclose(fp(0., torch.as_tensor(x)).numpy(),
@@ -53,7 +55,8 @@ def test_from_numpy_builds_the_same_tendency(system):
 
 def test_create_tendencies_single_state_and_attributes(system):
     pars, f, Df, qgt = system
-    fp, Dfp, qgt_p = create_tendencies(pars, return_qgtensor=True)
+    fp, Dfp, qgt_p = create_tendencies(pars, return_qgtensor=True,
+                                       device="cpu")
     x = _states(pars.ndim, B=1, seed=2)[0]
     xt = torch.as_tensor(x)
     assert fp(0., xt).shape == (pars.ndim,)
@@ -67,22 +70,22 @@ def test_create_tendencies_single_state_and_attributes(system):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_every_jax_mode_name_runs_the_one_path(mode):
-    pars = _rp_params()
-    f_ref, _ = create_tendencies(pars)
-    f_mode, _ = create_tendencies(pars, mode=mode)
+    pars = rp(QgParams)
+    f_ref, _ = create_tendencies(pars, device="cpu")
+    f_mode, _ = create_tendencies(pars, mode=mode, device="cpu")
     x = torch.as_tensor(_states(pars.ndim, seed=3))
     assert torch.equal(f_mode.batched(0., x), f_ref.batched(0., x))
 
 
 def test_unknown_mode_raises():
     with pytest.raises(ValueError, match="unknown contraction mode"):
-        create_tendencies(_rp_params(), mode="sparse")
+        create_tendencies(rp(QgParams), mode="sparse", device="cpu")
 
 
 def test_float32_tendency_close_to_float64(system):
     pars, f, _, qgt = system
     fp32, _ = make_tendency_fns(qgt.tensor, qgt.jacobian_tensor,
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
     x = _states(pars.ndim, seed=4)
     out = fp32(0., torch.as_tensor(x, dtype=torch.float32))
     assert out.dtype == torch.float32
@@ -102,10 +105,10 @@ def test_row_padded_layout():
 def test_rank5_tensor_raises_not_implemented():
     t5 = COO(np.array([[1], [1], [1], [1], [1]]), np.array([1.]), (3,) * 5)
     with pytest.raises(NotImplementedError, match="item 8"):
-        make_tendency_fns(t5, t5)
+        make_tendency_fns(t5, t5, device="cpu")
 
 
 def test_t4_configuration_raises_not_implemented():
     pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8}, T4=True)
     with pytest.raises(NotImplementedError, match="item 8"):
-        create_tendencies(pars)
+        create_tendencies(pars, device="cpu")

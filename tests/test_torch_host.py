@@ -1,0 +1,173 @@
+"""The port's own host layers (``qgs_tpu_torch.params``, ``.basis``,
+``.inner_products``, ``.tensors``, ``.utils``) against the JAX package's,
+from which they were copied: each configuration is set up by one shared
+settings function applied to each package's ``QgParams``, and the tendency
+tensors, their Jacobian tensors, ``ndim`` and the derived parameters the
+tensor reads must be equal bit for bit.
+
+The settings functions here are the ones the other ``test_torch_*`` files
+build both packages' configurations from."""
+
+import numpy as np
+import pytest
+
+from qgs_tpu.inner_products.analytic import (
+    AtmosphericAnalyticInnerProducts as JaxAtmAnalytic,
+    GroundAnalyticInnerProducts as JaxGroundAnalytic,
+    OceanicAnalyticInnerProducts as JaxOceanAnalytic,
+)
+from qgs_tpu.inner_products.symbolic import (
+    AtmosphericSymbolicInnerProducts as JaxAtmSymbolic,
+    OceanicSymbolicInnerProducts as JaxOceanSymbolic,
+)
+from qgs_tpu.params.params import QgParams as JaxQgParams
+from qgs_tpu.tensors.qgtensor import QgsTensor as JaxQgsTensor
+from qgs_tpu_torch import host
+
+
+def maooam(QgParams):
+    """MAOOAM, atmosphere 2x2 + ocean 2x4 (``qgs_maooam.py``, ndim 36)."""
+    pars = QgParams()
+    pars.set_atmospheric_channel_fourier_modes(2, 2)
+    pars.set_oceanic_basin_fourier_modes(2, 4)
+    pars.set_params({'kd': 0.0290, 'kdp': 0.0290, 'n': 1.5, 'r': 1.e-7,
+                     'h': 136.5, 'd': 1.1e-7})
+    pars.atemperature_params.set_params({'eps': 0.7, 'T0': 289.3,
+                                         'hlambda': 15.06})
+    pars.gotemperature_params.set_params({'gamma': 5.6e8, 'T0': 301.46})
+    pars.atemperature_params.set_insolation(103.3333, 0)
+    pars.gotemperature_params.set_insolation(310., 0)
+    return pars
+
+
+def rp(QgParams):
+    """The atmosphere-only channel of ``qgs_rp.py`` (ndim 20), with its
+    orography and thetas."""
+    pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.1})
+    pars.set_atmospheric_channel_fourier_modes(2, 2)
+    pars.ground_params.set_orography(0.2, 1)
+    pars.atemperature_params.set_thetas(0.2, 0)
+    return pars
+
+
+def ground(QgParams):
+    """Atmosphere + ground with orography and heat exchange (the analytic
+    configuration of ``tests/test_model_and_ground.py``, ndim 30)."""
+    pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8}, gtemperature_params=True)
+    pars.set_params({'kd': 0.04, 'kdp': 0.04, 'n': 1.5})
+    pars.set_atmospheric_channel_fourier_modes(2, 2)
+    pars.set_ground_channel_fourier_modes()
+    pars.ground_params.set_orography(0.2, 1)
+    return pars
+
+
+def symbolic(QgParams):
+    """The symbolic-basis configuration of ``tests/test_symbolic_ip.py``
+    (atmosphere 2x2 + ocean 2x4), whose inner products are computed by
+    quadrature."""
+    pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8})
+    pars.set_params({'kd': 0.04, 'kdp': 0.04, 'n': 1.5})
+    pars.set_atmospheric_channel_fourier_modes(2, 2, mode='symbolic')
+    pars.set_oceanic_basin_fourier_modes(2, 4, mode='symbolic')
+    return pars
+
+
+def both_params(settings):
+    """``(JAX package's QgParams, port's QgParams)`` from one settings
+    function."""
+    return settings(JaxQgParams), settings(host.QgParams)
+
+
+def _tensor(pars, atm, ocean, ground_ip, QgsTensor, symbolic_ips):
+    """The configuration's tensor, its inner products built as
+    ``create_tendencies`` of either package builds them (the symbolic ones
+    by quadrature, as ``tests/test_symbolic_ip.py`` does)."""
+    kw = dict(quadrature=True) if symbolic_ips else {}
+    aip = atm(pars, **kw)
+    oip = ocean(pars, **kw) if pars.oblocks is not None or symbolic_ips \
+        else None
+    gip = ground_ip(pars) if pars.gblocks is not None else None
+    if oip is not None:
+        aip.connect_to_ocean(oip)
+    elif gip is not None:
+        aip.connect_to_ground(gip)
+    return QgsTensor(pars, aip, oip, gip)
+
+
+JAX_IPS = {False: (JaxAtmAnalytic, JaxOceanAnalytic, JaxGroundAnalytic),
+           True: (JaxAtmSymbolic, JaxOceanSymbolic, None)}
+PORT_IPS = {False: (host.AtmosphericAnalyticInnerProducts,
+                    host.OceanicAnalyticInnerProducts,
+                    host.GroundAnalyticInnerProducts),
+            True: (host.AtmosphericSymbolicInnerProducts,
+                   host.OceanicSymbolicInnerProducts, None)}
+
+CONFIGS = {"maooam": (maooam, 36), "rp": (rp, 20), "ground": (ground, 30),
+           "symbolic": (symbolic, 36)}
+
+# derived parameters the tensor reads (qgs_tpu/tensors/qgtensor.py)
+DERIVED = ("ndim", "number_of_variables", "variables_range", "G", "Cpa",
+           "Cpgo", "Lpa", "Lpgo", "LSBpa", "LSBpgo", "sbpa", "sbpgo",
+           "T4LSBpa", "T4LSBpgo", "T4sbpa", "T4sbpgo", "dynamic_T",
+           "atmospheric_params.kd", "atmospheric_params.kdp",
+           "atmospheric_params.sig0", "atemperature_params.hd",
+           "atemperature_params.thetas", "atemperature_params.sc",
+           "oceanic_params.d", "oceanic_params.r", "ground_params.hk",
+           "scale_params.beta")
+
+
+def _value(pars, path):
+    """A parameter as plain numbers (None where the configuration has no
+    such component)."""
+    obj = pars
+    for name in path.split("."):
+        if obj is None:
+            return None
+        obj = getattr(obj, name)
+    if obj is None or isinstance(obj, (bool, int)):
+        return obj
+    try:
+        return np.asarray(obj, dtype=np.float64)
+    except (TypeError, ValueError):
+        return np.asarray([None if v is None else float(v) for v in obj],
+                          dtype=object)
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def tensors(request):
+    settings, ndim = CONFIGS[request.param]
+    sym = request.param == "symbolic"
+    jax_pars, port_pars = both_params(settings)
+    t_jax = _tensor(jax_pars, *JAX_IPS[sym], JaxQgsTensor, sym)
+    t_port = _tensor(port_pars, *PORT_IPS[sym], host.QgsTensor, sym)
+    return ndim, jax_pars, port_pars, t_jax, t_port
+
+
+def test_tendency_tensor_equal_bit_for_bit(tensors):
+    ndim, _, _, t_jax, t_port = tensors
+    for name in ("tensor", "jacobian_tensor"):
+        a, b = getattr(t_jax, name), getattr(t_port, name)
+        assert type(b) is host.COO
+        assert tuple(b.shape) == tuple(a.shape) == (ndim + 1,) * 3
+        assert b.nnz == a.nnz > 0
+        assert np.array_equal(b.coords, a.coords)
+        assert b.data.dtype == a.data.dtype
+        assert np.array_equal(b.data, a.data)
+
+
+def test_ndim_and_derived_parameters_equal(tensors):
+    ndim, jax_pars, port_pars, _, _ = tensors
+    assert port_pars.ndim == jax_pars.ndim == ndim
+    for path in DERIVED:
+        a, b = _value(jax_pars, path), _value(port_pars, path)
+        if a is None or b is None:
+            assert a is None and b is None, path
+        else:
+            assert np.array_equal(np.asarray(a), np.asarray(b)), path
+
+
+def test_port_host_classes_are_its_own():
+    """The re-exported classes live in the port's modules."""
+    for name in host.__all__:
+        assert getattr(host, name).__module__.startswith("qgs_tpu_torch."), \
+            name

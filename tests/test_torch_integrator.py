@@ -19,17 +19,20 @@ from qgs_tpu_torch.integrators.rk import (infer_ndim, integrate_runge_kutta,
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.ops import fused_rk4
 
-from tests.test_trajectory import _maooam_params, _rp_params
+from qgs_tpu_torch.host import QgParams
+
+from tests.test_torch_host import both_params, maooam, rp
 
 TOL = dict(rtol=1e-9, atol=1e-11)
 
 
-@pytest.fixture(scope="module", params=[_maooam_params, _rp_params],
-                ids=["maooam", "rp"])
+@pytest.fixture(scope="module", params=[maooam, rp], ids=["maooam", "rp"])
 def both(request):
-    pars = request.param()
-    f_jax, _ = jax_create_tendencies(pars)
-    f_port, _ = create_tendencies(pars)
+    """The port's QgParams and the two packages' tendencies of one
+    configuration, the port's on the CPU."""
+    jax_pars, pars = both_params(request.param)
+    f_jax, _ = jax_create_tendencies(jax_pars)
+    f_port, _ = create_tendencies(pars, device="cpu")
     return pars, f_jax, f_port
 
 
@@ -92,8 +95,8 @@ def test_initialize_with_ic_matches_jax(both):
 
 
 def test_initialize_draws_from_the_given_rng():
-    pars = _rp_params()
-    f, _ = create_tendencies(pars)
+    pars = rp(QgParams)
+    f, _ = create_tendencies(pars, device="cpu")
     ics = []
     for _ in range(2):
         integ = RungeKuttaIntegrator()
@@ -132,7 +135,7 @@ def test_rk2_tableau_matches_jax(both):
 
 def test_float32_tendency_integrates_in_float32(both):
     pars, f_jax, _ = both
-    f32, _ = create_tendencies(pars, dtype=torch.float32)
+    f32, _ = create_tendencies(pars, dtype=torch.float32, device="cpu")
     ic = np.random.default_rng(11).random((2, pars.ndim)) * 0.01
     _, y32 = _run(RungeKuttaIntegrator, f32, ic, t0=0., t=5., dt=0.1,
                   write_steps=0)
@@ -151,3 +154,20 @@ def test_dimension_autoprobe_matches_jax(both):
     t, traj = integrate_runge_kutta(f_port.batched, 0., 1., 0.1)
     assert np.array_equal(t, t_j) and traj.shape[0] == pars.ndim
     np.testing.assert_allclose(traj.numpy(), np.asarray(traj_j), **TOL)
+
+
+def test_twofloat_needs_the_function_device(both):
+    """The twofloat tier runs on the tendency function's device: a function
+    that carries the model's tensor but no device raises, and does not
+    fall back to the CPU."""
+    pars, _, f_port = both
+
+    def f_plain(t, x):
+        return f_port.batched(t, x)
+
+    f_plain.qgtensor = f_port.qgtensor
+    integ = RungeKuttaIntegrator(precision="twofloat")
+    integ.set_func(f_plain)
+    with pytest.raises(RuntimeError, match="device"):
+        integ.integrate(0., 1., 0.1,
+                        ic=np.zeros((1, pars.ndim)), write_steps=0)

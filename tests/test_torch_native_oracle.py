@@ -37,7 +37,8 @@ def test_tendency_matches_native(system):
     t = qgt.tensor
     f_nat, _ = native.make_native_tendencies(t, qgt.jacobian_tensor)
     x = np.random.default_rng(12).random((4, pars.ndim)) * 0.05
-    out = from_numpy(t.coords, t.data, t.shape)(0., torch.as_tensor(x))
+    out = from_numpy(t.coords, t.data, t.shape, device="cpu")(
+        0., torch.as_tensor(x))
     np.testing.assert_allclose(out.numpy(), np.stack([f_nat(0., xi)
                                                       for xi in x]), **TOL)
 
@@ -49,12 +50,12 @@ def test_plain_rk4_matches_native(system, tier):
     x = np.random.default_rng(13).random((3, pars.ndim)) * 0.01
     if tier == "float64":
         times, traj = integrate_runge_kutta(
-            from_numpy(t.coords, t.data, t.shape), 0., 30., 0.1, x,
-            write_steps=10)
+            from_numpy(t.coords, t.data, t.shape, device="cpu"), 0., 30.,
+            0.1, x, write_steps=10)
     else:
         times, traj = integrate_runge_kutta_df(
-            DfTendency(t.coords, t.data, t.shape), 0., 30., 0.1, x,
-            write_steps=10)
+            DfTendency(t.coords, t.data, t.shape, device="cpu"), 0., 30.,
+            0.1, x, write_steps=10)
     assert len(times) == 31 and traj.dtype == torch.float64
     for b in range(3):
         y_nat, rec = native.rk4_integrate(t, x[b], 0.1, 300, write_steps=10)

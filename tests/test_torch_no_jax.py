@@ -1,7 +1,8 @@
-"""The port runs where JAX is absent: a subprocess with ``jax`` blocked
-imports ``qgs_tpu_torch``, builds MAOOAM and integrates 10 steps on the CPU
-in float64 and in twofloat;
-and no source file of the port imports JAX."""
+"""The port stands on its own: a subprocess with ``jax`` and the JAX
+package ``qgs_tpu`` blocked imports ``qgs_tpu_torch``, builds MAOOAM and
+integrates 10 steps on the CPU in float64 and in twofloat; no source file
+of the port imports either; and the port builds on the CUDA card unless
+asked for the CPU."""
 
 import os
 import pathlib
@@ -9,11 +10,20 @@ import re
 import subprocess
 import sys
 
+import pytest
+import torch
+
+from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.models.tendencies import create_tendencies
+
+from tests.test_torch_host import maooam
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
+sys.modules["qgs_tpu"] = None      # and so does any of the JAX package
 import numpy as np
 import qgs_tpu_torch
 from qgs_tpu_torch.host import QgParams
@@ -23,7 +33,7 @@ from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
 pars = QgParams()
 pars.set_atmospheric_channel_fourier_modes(2, 2)
 pars.set_oceanic_basin_fourier_modes(2, 4)
-f, Df, qgt = create_tendencies(pars, return_qgtensor=True)
+f, Df, qgt = create_tendencies(pars, return_qgtensor=True, device="cpu")
 assert qgt.tensor.shape == (37, 37, 37) and qgt.tensor.nnz > 0
 integ = RungeKuttaIntegrator()
 integ.set_func(f)
@@ -37,8 +47,9 @@ df.set_func(f)
 df.integrate(0., 1., 0.1, ic=np.random.default_rng(0).random((4, pars.ndim))
              * 0.01, write_steps=5)
 assert bool((df.get_trajectories()[1] - traj).abs().max() < 1e-12)
-assert sys.modules["jax"] is None
-print("OK", sorted(m for m in sys.modules if m.split(".")[0] == "jax"))
+assert sys.modules["jax"] is None and sys.modules["qgs_tpu"] is None
+print("OK", sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "qgs_tpu")))
 """
 
 
@@ -47,13 +58,31 @@ def test_port_runs_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK ['jax']", proc.stdout
+    assert proc.stdout.strip() == "OK ['jax', 'qgs_tpu']", proc.stdout
 
 
 def test_no_port_source_imports_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.MULTILINE)
+    """Neither the port nor chip_smoke.py imports jax or qgs_tpu."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|qgs_tpu)(?!_torch)\b",
+                         re.MULTILINE)
+    assert pattern.search("import qgs_tpu.params\n")
+    assert pattern.search("    from qgs_tpu import native\n")
+    assert pattern.search("from jax import numpy\n")
+    assert not pattern.search("from qgs_tpu_torch.host import COO\n")
     sources = sorted((REPO / "qgs_tpu_torch").rglob("*.py"))
-    assert sources
-    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert len(sources) > 20
+    offenders = [str(p) for p in sources + [REPO / "chip_smoke.py"]
+                 if pattern.search(p.read_text())]
     assert not offenders
-    assert not pattern.search((REPO / "chip_smoke.py").read_text())
+
+
+def test_create_tendencies_defaults_to_the_card():
+    """With no device, the tendencies are built on ``cuda``; where there is
+    no card, the call raises and does not land on the CPU."""
+    pars = maooam(QgParams)
+    if torch.cuda.is_available():
+        f, Df = create_tendencies(pars)
+        assert f.batched.device.type == Df.batched.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            create_tendencies(pars)

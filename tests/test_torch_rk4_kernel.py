@@ -1,9 +1,11 @@
-"""The fused RK4 kernel's layout and plain version against the JAX package:
-the plain version in float32 against the TPU kernel it replaces
-(``make_pallas_rk4_f32``, run in interpret mode), and in float64 against
-``make_rk_step``.  On the CPU the wrapper runs the plain version and
-launches nothing; the kernel itself is compared with its plain version only
-on a CUDA card (marked ``cuda``)."""
+"""The fused RK4 kernel's layouts and plain version against the JAX package:
+the row-group layout of every choice of G (the entries, the rows, the
+padding and the balance, and the tendency evaluated through it against
+``Tendency`` and the JAX tendency), the plain version in float32 against
+the TPU kernel it replaces (``make_pallas_rk4_f32``, run in interpret
+mode), and in float64 against ``make_rk_step``.  On the CPU the wrapper
+runs the plain version and launches nothing; the kernel itself is compared
+with its plain version only on a CUDA card (marked ``cuda``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +54,84 @@ def test_csr_layout_reproduces_the_tendency(make_params):
         out[:, r] = (vals[e] * xx[:, j[e]] * xx[:, k[e]]).sum(axis=1)
     np.testing.assert_allclose(out[:, 1:], np.asarray(f.batched(0., x)),
                                rtol=1e-12, atol=1e-14)
+
+
+def _layout_and_csr(tensor, groups):
+    lay = fused_rk4.group_layout(tensor.coords, tensor.data, tensor.shape,
+                                 groups)
+    return lay, fused_rk4.csr_layout(tensor.coords, tensor.data,
+                                     tensor.shape)
+
+
+@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
+def test_group_layout_places_every_entry_once(maooam, groups):
+    """Every entry is in exactly one place, in its row's slot; each row lives
+    in one group, padded with zero entries to whole chunks, its last chunk
+    flagged; the records past a group's length are zero; and the groups'
+    lengths differ by at most one row's records."""
+    _, _, tensor = maooam
+    lay, (row_ptr, jk, vals) = _layout_and_csr(tensor, groups)
+    n = tensor.shape[0] - 1
+    C = fused_rk4.CHUNK
+    counts = np.diff(row_ptr)[1:]
+    padded = np.maximum(-(-counts // C), 1) * C
+    assert lay.jk.shape == lay.ctl.shape == lay.vals.shape
+    assert lay.jk.shape[0] == groups and lay.group_of_row.shape == (n,)
+    assert lay.jk.dtype == lay.ctl.dtype == lay.lengths.dtype == np.int32
+    seen = []
+    for g in range(groups):
+        L = int(lay.lengths[g])
+        assert L % C == 0 and lay.jk.shape[1] >= L + fused_rk4.AHEAD * C
+        for a in (lay.jk, lay.ctl, lay.vals):
+            assert not a[g, L:].any()
+        rows = lay.ctl[g, :L] & (fused_rk4.LAST - 1)
+        assert np.all(np.diff(rows) >= 0)
+        for i in np.unique(rows):
+            assert lay.group_of_row[i] == g
+            at = np.flatnonzero(rows == i)
+            assert at.size == padded[i] and np.all(np.diff(at) == 1)
+            e = slice(row_ptr[i + 1], row_ptr[i + 2])
+            assert np.array_equal(lay.jk[g, at[:counts[i]]], jk[e])
+            assert np.array_equal(lay.vals[g, at[:counts[i]]], vals[e])
+            assert not lay.jk[g, at[counts[i]:]].any()
+            assert not lay.vals[g, at[counts[i]:]].any()
+            last = (lay.ctl[g, at] & fused_rk4.LAST) != 0
+            assert last[-C:].all() and not last[:-C].any()
+            seen.append(int(i))
+    assert sorted(seen) == list(range(n))
+    assert int(lay.lengths.sum()) == int(padded.sum())
+    assert int(lay.lengths.max() - lay.lengths.min()) <= int(padded.max())
+
+
+@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
+def test_group_tendency_matches_tendency_and_jax(maooam, groups):
+    pars, f, tensor = maooam
+    lay = fused_rk4.group_layout(tensor.coords, tensor.data, tensor.shape,
+                                 groups)
+    x = np.random.default_rng(8).random((5, pars.ndim)) * 0.05
+    out = fused_rk4.group_tendency(lay, torch.as_tensor(x))
+    assert out.dtype == torch.float64 and out.shape == (5, pars.ndim)
+    np.testing.assert_allclose(out.numpy(),
+                               _port(tensor)(0., torch.as_tensor(x)).numpy(),
+                               rtol=0, atol=1e-15)
+    np.testing.assert_allclose(out.numpy(), np.asarray(f.batched(0., x)),
+                               rtol=1e-12, atol=1e-14)
+
+
+def test_group_layout_writes_rows_without_entries():
+    """A row with no entries still gets a chunk (of zero entries), so that
+    the kernel writes its stage values; its tendency is 0."""
+    coords = np.array([[1, 1, 3, 3, 3], [0, 1, 2, 3, 0], [1, 1, 3, 0, 0]])
+    data = np.array([1., 2., 3., 4., 5.])
+    lay = fused_rk4.group_layout(coords, data, (4, 4, 4), 2)
+    rows = [sorted(set((lay.ctl[g, :L] & (fused_rk4.LAST - 1)).tolist()))
+            for g, L in enumerate(lay.lengths)]
+    assert sorted(rows[0] + rows[1]) == [0, 1, 2]
+    assert lay.lengths.tolist() == [4, 4]           # rows 2 | 0 and 1
+    x = torch.tensor([[0.5, -2., 3.]], dtype=torch.float64)
+    out = fused_rk4.group_tendency(lay, x)
+    ref = from_numpy(coords, data, (4, 4, 4), device="cpu")(0., x)
+    assert torch.equal(out, ref) and out[0, 1] == 0
 
 
 def test_reference_f32_matches_pallas_kernel(maooam):
@@ -111,15 +191,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
 @pytest.mark.parametrize("dtype,tol,n_steps", [
     (torch.float64, dict(rtol=1e-9, atol=1e-11), 301),
     (torch.float32, dict(rtol=1e-4, atol=1e-6), 100),
 ], ids=["f64", "f32"])
 def test_kernel_matches_plain_version_on_card(maooam, cuda_device, dtype, tol,
-                                              n_steps):
-    """The kernel against the float64 plain version on the card: B = 1000
-    (a ragged last block), the reference's grid with a shorter last step,
-    a record every 7 steps."""
+                                              n_steps, groups):
+    """The kernel against the float64 plain version on the card, for every
+    G: B = 1000 (a ragged last block), the reference's grid with a shorter
+    last step, a record every 7 steps."""
     pars, _, tensor = maooam
     dts = torch.as_tensor(np.diff(time_grid(0., 30.05, 0.1))[:n_steps],
                           device=cuda_device)
@@ -127,7 +208,7 @@ def test_kernel_matches_plain_version_on_card(maooam, cuda_device, dtype, tol,
                         * 0.01, device=cuda_device)
     before = fused_rk4.launches
     y, rec = fused_rk4.fused_rk4(_port(tensor, dtype, cuda_device),
-                                 x.to(dtype), dts, 7)
+                                 x.to(dtype), dts, 7, groups=groups)
     torch.cuda.synchronize()
     assert fused_rk4.launches == before + 1
     y_ref, rec_ref = fused_rk4.fused_rk4_reference(

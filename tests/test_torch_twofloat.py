@@ -28,12 +28,14 @@ from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
 from qgs_tpu.ops import twofloat as jtf
 from qgs_tpu.ops.pallas_kernels import make_pallas_df_rk4
 from qgs_tpu.params.params import QgParams
+from qgs_tpu_torch.host import QgParams as PortQgParams
 from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
 from qgs_tpu_torch.integrators.rk import integrate_runge_kutta_df, rk2_tableau
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.ops import fused_df_rk4
 from qgs_tpu_torch.ops import twofloat as tf
 
+from tests.test_torch_host import both_params, maooam as maooam_settings
 from tests.test_trajectory import _maooam_params
 
 TOL = dict(rtol=1e-9, atol=1e-11)
@@ -57,7 +59,8 @@ def maooam():
 
 
 def _port(tensor):
-    return tf.DfTendency(tensor.coords, tensor.data, tensor.shape)
+    return tf.DfTendency(tensor.coords, tensor.data, tensor.shape,
+                         device="cpu")
 
 
 def _np(pair):
@@ -163,9 +166,9 @@ def test_reference_matches_interpreted_pallas_kernel(maooam):
 
 @pytest.mark.parametrize("forward", [True, False], ids=["forward", "backward"])
 def test_twofloat_integrator_matches_jax_float64(forward):
-    pars = _maooam_params()
-    f_jax, _ = jax_create_tendencies(pars)
-    f_port, _ = create_tendencies(pars)
+    jax_pars, pars = both_params(maooam_settings)
+    f_jax, _ = jax_create_tendencies(jax_pars)
+    f_port, _ = create_tendencies(pars, device="cpu")
     ic = np.random.default_rng(5).random((3, pars.ndim)) * 0.01
     kw = dict(t0=0., t=30.05, dt=0.1, write_steps=7, forward=forward)
     ij = JaxRungeKuttaIntegrator()
@@ -199,14 +202,15 @@ def test_twofloat_rk2_matches_jax_float64(maooam):
     assert np.abs(y4.numpy() - ydf.numpy()).max() > 1e-6
 
     integ = RungeKuttaIntegrator(a=a, b=b, c=c, precision="twofloat")
-    integ.set_func(create_tendencies(pars)[0])
+    integ.set_func(create_tendencies(maooam_settings(PortQgParams),
+                                     device="cpu")[0])
     integ.integrate(0., 5., 0.1, ic=x0, write_steps=0)
     assert torch.equal(integ.get_trajectories()[1], ydf)
 
 
 def test_twofloat_errors(maooam):
-    pars, _, _ = maooam
-    f_port, _ = create_tendencies(pars)
+    pars = maooam_settings(PortQgParams)
+    f_port, _ = create_tendencies(pars, device="cpu")
     x0 = np.full(pars.ndim, 0.01)
 
     integ = RungeKuttaIntegrator(precision="twofloat")
