@@ -13,17 +13,18 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
 1. device: a CUDA card is required; prints the card's name and power limit;
 2. build: compiles ``qgs_tpu_torch/csrc/rk4_fused.cu`` and
    ``rk4_df_fused.cu`` with nvcc (sm_90a), in parallel;
-3. each kernel against its plain PyTorch version on the card (the RK4
-   kernel in float64 and float32 for every choice of row groups G at
-   B = 1, 31, 1000 and 4097, the double-float one on pairs), and the
+3. each kernel against its plain PyTorch version on the card, for every
+   choice of row groups G at B = 1, 31, 1000 and 4097 (the RK4 kernel in
+   float64 and float32, the double-float one on pairs), and the
    integrator's kernel routes against their plain routes;
 4. the main paths, float64 then twofloat, with the kernels' launch counts
    reset just before each; each whole trajectory is held against the plain
    float64 version at the same shapes;
 5. times of each kernel and of its plain version at B = 16384, 1000 steps,
-   of the RK4 kernel at the float64 main path's shapes, and of the RK4
-   kernel for every G at B = 4096 and 16384, with each kernel's bound (the least time the card could take for its operations
-   or bytes) and its share of that bound.
+   of each kernel at its main path's shapes, and of each kernel for every
+   G at B = 4096 and 16384, with each kernel's bound (the least time the
+   card could take for its operations or bytes) and its share of that
+   bound.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
@@ -233,17 +234,21 @@ def main():
         fail("backward record times differ between kernel and plain route")
     check_close("integrate backward", trk, trp, TOL64)
 
-    # the double-float kernel on the same inputs: the wrapper directly, and
+    # the double-float kernel for every G (one plain run a B), and
     # integrate_runge_kutta_df's kernel route against its plain route (a
     # function that carries no tensor), forward and backward
     fdf = DfTendency(coo.coords, coo.data, coo.shape, device=dev)
-    ydf = df_from_f64(y0)
-    yk, rk = fused_df_rk4.fused_df_rk4(fdf, *ydf, dts, 7)
-    yr, rr = fused_df_rk4.fused_df_rk4_reference(fdf, *ydf, dts, 7)
-    errs_df = [check_close("df B=1000 301 steps final", df_to_f64(yk),
-                           df_to_f64(yr), TOL64),
-               check_close("df B=1000 records every 7", df_to_f64(rk),
-                           df_to_f64(rr), TOL64)]
+    errs_df = []
+    for B in (1, 31, 1000, 4097):
+        ydf = df_from_f64(torch.as_tensor(
+            np.random.default_rng(B).random((B, n)) * 0.01, device=dev))
+        yr, rr = fused_df_rk4.fused_df_rk4_reference(fdf, *ydf, dts, 7)
+        for G in fused_rk4.GROUPS:
+            yk, rk = fused_df_rk4.fused_df_rk4(fdf, *ydf, dts, 7, groups=G)
+            errs_df.append(check_close(f"df G={G} B={B} 301 steps final",
+                                       df_to_f64(yk), df_to_f64(yr), TOL64))
+            errs_df.append(check_close(f"df G={G} B={B} records every 7",
+                                       df_to_f64(rk), df_to_f64(rr), TOL64))
     for forward in (True, False):
         tk, trk = integrate_runge_kutta_df(fdf, 0., 30.05, 0.1, y0,
                                            write_steps=7, forward=forward)
@@ -351,27 +356,42 @@ def main():
               f"({bounds[name][1]}), share of bound "
               f"{bounds[name][0] / kern:.4f}; {card}", flush=True)
 
-    # the RK4 kernel alone at the float64 main path's shapes, in this call,
-    # against that path's wall clock
-    main_kernel_ms = min(cuda_ms(lambda: fused_rk4.fused_rk4(
-        f64, ic_dev, dts_main, 100)) for _ in range(2))
-    print(f"[5] f64 kernel at the main path's shapes (B=4096, 10000 steps, "
-          f"a record every 100): {main_kernel_ms:.3f} ms; the main path "
-          f"took {main_s['float64'] * 1e3:.3f} ms; {card}", flush=True)
+    # each kernel alone at its main path's shapes, in this call, against
+    # that path's wall clock
+    ic_df = df_from_f64(ic_dev)
+    main_kernel_ms = {
+        "float64": min(cuda_ms(lambda: fused_rk4.fused_rk4(
+            f64, ic_dev, dts_main, 100)) for _ in range(2)),
+        "twofloat": min(cuda_ms(lambda: fused_df_rk4.fused_df_rk4(
+            fdf, *ic_df, dts_main, 100)) for _ in range(2))}
+    for precision, ms in main_kernel_ms.items():
+        print(f"[5] {precision} kernel at the main path's shapes (B=4096, "
+              f"10000 steps, a record every 100): {ms:.3f} ms; the main "
+              f"path took {main_s[precision] * 1e3:.3f} ms, the kernel "
+              f"{ms / (main_s[precision] * 1e3):.4f} of it; {card}",
+              flush=True)
 
-    # the RK4 kernel for every G, in turns (G ascending, then descending)
+    # each kernel for every G, in turns (G ascending, then descending)
     per_g = {}
     for Bg in (4096, 16384):
         yg = yb[:Bg].contiguous()
-        for name, fn, y_in in (("f64", f64, yg), ("f32", f32, yg.float())):
+        yg32, ygdf = yg.float(), df_from_f64(yg)
+        for name, run_g, work in (
+                ("f64", lambda d, G: fused_rk4.fused_rk4(f64, yg, d, groups=G),
+                 rk4_work(Bg, n, coo.coords, steps, 8)),
+                ("f32", lambda d, G: fused_rk4.fused_rk4(f32, yg32, d,
+                                                         groups=G),
+                 rk4_work(Bg, n, coo.coords, steps, 4)),
+                ("df", lambda d, G: fused_df_rk4.fused_df_rk4(
+                    fdf, *ygdf, d, groups=G),
+                 df_rk4_work(Bg, n, coo.coords, steps))):
             for G in fused_rk4.GROUPS:
-                fused_rk4.fused_rk4(fn, y_in, dts_b[:10], groups=G)
+                run_g(dts_b[:10], G)
             runs_g = {G: [] for G in fused_rk4.GROUPS}
             for G in fused_rk4.GROUPS + fused_rk4.GROUPS[::-1]:
-                runs_g[G].append(cuda_ms(lambda: fused_rk4.fused_rk4(
-                    fn, y_in, dts_b, groups=G)))
-            b_ms, _ = bound(*rk4_work(Bg, n, coo.coords, steps,
-                                      y_in.element_size()), PEAK_FLOPS[name])
+                runs_g[G].append(cuda_ms(lambda: run_g(dts_b, G)))
+            b_ms, _ = bound(*work, PEAK_FLOPS["f64" if name == "f64"
+                                              else "f32"])
             for G, rs in runs_g.items():
                 per_g[f"{name} B={Bg} G={G}"] = min(rs)
                 print(f"[5] per G: {name} B={Bg} {steps} steps G={G}: "
@@ -400,13 +420,14 @@ def main():
                  f"G={fused_rk4.DEFAULT_GROUPS}",
         "main_path_max_abs_err_vs_f64": err_main["float64"][1],
         "main_path_s": main_s["float64"],
-        "main_path_kernel_ms": main_kernel_ms,
+        "main_path_kernel_ms": main_kernel_ms["float64"],
         "f32_max_abs_err": max(errs32),
         "f32_ms": times["f32"][0],
         "f32_plain_ms": times["f32"][1],
         "f32_bound_ms": bounds["f32"][0],
         "f32_share_of_bound": bounds["f32"][0] / times["f32"][0],
-        "ms_per_groups": per_g,
+        "ms_per_groups": {k: v for k, v in per_g.items()
+                          if not k.startswith("df ")},
         "card": card,
     }, {
         "name": "rk4_df_fused",
@@ -421,10 +442,14 @@ def main():
         "bound_by": bounds["df"][1],
         "share_of_bound": bounds["df"][0] / times["df"][0],
         "library_ms": None,
-        "shape": f"B={B} n={n} steps={steps} double-float",
+        "shape": f"B={B} n={n} steps={steps} double-float, "
+                 f"G={fused_rk4.DEFAULT_GROUPS}",
         "main_path_max_abs_err_vs_f64": err_main["twofloat"][1],
         "main_path_members_0_7_max_abs_err_vs_f64": err_main["twofloat"][0],
         "main_path_s": main_s["twofloat"],
+        "main_path_kernel_ms": main_kernel_ms["twofloat"],
+        "ms_per_groups": {k: v for k, v in per_g.items()
+                          if k.startswith("df ")},
         "card": card,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,36 +19,63 @@
 // p = a*b, e = fma(a, b, -p): exact, so equal to the bitmask-split Dekker
 // product.  Every other operation is an __fadd_rn / __fsub_rn / __fmul_rn
 // intrinsic, which nvcc neither contracts into an FMA (its default is
-// -fmad=true) nor reassociates.  Only the summation order of a row differs
-// from the plain version: here the entries of a row are added left to right
-// in csr_layout order; there a pairwise tree sums the padded slots.
+// -fmad=true) nor reassociates.  A row's entries are summed in the order of
+// qgs_tpu_torch.ops.fused_df_rk4.df_group_tendency, not the plain
+// version's pairwise tree.
 //
 // What bounds it on the card: not device-memory bytes -- the state stays in
-// shared memory for the whole run.  Each entry of each stage costs one
-// broadcast shared-memory load of the entry (v_hi, v_lo, j | k << 16), two
-// gathers of (hi, lo) pairs, two df products and one df add: about 30
-// dependent float operations, against K1's one FMA.  One thread per
-// trajectory leaves few warps an SM, so the bound is the latency of that
-// dependent chain.  What the design does about it:
-//   * every thread of a block walks the same row-sorted entry list, held
-//     once per block in shared memory as 16-byte records (one broadcast
-//     load an entry);
-//   * the per-thread state lives in shared memory as float2 (hi, lo) laid
-//     out [variable][thread], so the data-dependent gathers of a warp fall
-//     on neighbouring banks (one 8-byte load, no bank conflicts);
-//   * each row's sum stays in registers and goes straight into k1, k2 + k3
-//     and the next stage's input: the only barrier is the one after the
-//     entry load.
-// The block holds about 52 KB of shared memory at 32 threads (MAOOAM),
-// above the 48 KB static limit, so the launcher raises the block's dynamic
-// shared-memory limit first.
+// shared memory for the whole run.  Each entry of each stage is a chain of
+// about 24 dependent float32 operations (two df products at 9 instructions,
+// one df add at 11) behind its gathers; one thread that walks all of a
+// trajectory's entries in series is bound by that chain's latency.  With
+// enough warps an SM the bound is the schedulers' issue rate: about 29
+// float32 instructions an entry, almost none of them an FMA, plus the
+// loads and address arithmetic.  The design:
+//   * K1's mapping (csrc/rk4_fused.cu): a block serves 32 trajectories with
+//     G warps (G in 1, 2, 4, 8); lane t of every warp serves trajectory t.
+//     The output rows are split into G groups of about equal entry count
+//     (host side, longest row first), and warp w walks only group w's
+//     entries: G times the warps an SM (32 at G = 8, 4 blocks of about
+//     55 KB), each with 1/G of the chain;
+//   * the state lives in shared memory as float2 (hi, lo) laid out
+//     [variable][lane], so the data-dependent gathers of a warp fall on
+//     neighbouring banks (two wavefronts an 8-byte gather, no conflicts);
+//   * the entries come as the 16-byte records {j | k << 16, row | last-chunk
+//     flag, v_hi, v_lo} of qgs_tpu_torch.ops.fused_rk4.group_layout, read
+//     in chunks of two entries of one row (rows padded with zero entries to
+//     whole chunks) into two independent double-float partial sums, added
+//     at the row's last chunk.  The block keeps its own copy, one 48-byte
+//     Chunk a chunk: the four gather offsets in bytes (one add an
+//     address), the four values, the control word -- three broadcast loads
+//     from one address a chunk;
+//   * the chunk loop is software pipelined: while chunk c's terms are added
+//     into the partial sums, chunk c + 1's are gathered and multiplied and
+//     chunk c + 2's records loaded, all in one basic block;
+//   * every product is done, the ones by xx[0] = (1, 0) included (a
+//     product of a normalised pair by (1, 0) returns the pair): a
+//     warp-uniform branch that skips them costs the schedulers more than
+//     the products it saves (PERF.md, Findings);
+//   * at a row's last chunk its sum goes straight into k1, s23 = k2 + k3 or
+//     the new y, and into the next stage's input.  Warp w writes only its
+//     own rows of k1, s23, y and the next input; every warp reads all rows
+//     of the current input.  The two stage inputs alternate (xa -> xb -> xa
+//     ...), so one barrier per stage orders all of it: after it, every
+//     write of the stage's output is visible, and every read of the buffer
+//     the next stage overwrites is done; k1, s23 and y are read and written
+//     only by the warp that owns the row, between the barriers that order
+//     the records and the initial and final copies.  Lanes past the end of
+//     a ragged last block run on a zero state and reach every barrier; only
+//     their loads and stores are skipped.
 //
 // C interface (no PyTorch headers, so nvcc builds it in seconds):
-//   qgs_rk4_df_fused(row_ptr, jk, vhi, vlo, n1, nnz, y_hi, y_lo, B, dts,
-//       n_steps, write_every, rec_hi, rec_lo, stream) -> cudaError_t
-//   row_ptr (n1 + 1) int32: CSR offsets of output rows 0..n1-1 (row 0,
-//       the dummy, is empty); jk (nnz) int32: j | (k << 16);
-//   vhi, vlo (nnz) float: the (hi, lo) split of the values;
+//   qgs_rk4_df_fused(jk, ctl, vhi, vlo, lengths, groups, width, n1, y_hi,
+//       y_lo, B, dts, n_steps, write_every, rec_hi, rec_lo, stream)
+//       -> cudaError_t
+//   jk, ctl (groups, width) int32 and vhi, vlo (groups, width) float: the
+//       group tables of qgs_tpu_torch.ops.fused_rk4.group_layout, the
+//       values split into (hi, lo) (zero records past each group's length,
+//       and at least one chunk of them);
+//   lengths (groups) int32: records of each group, a multiple of 2;
 //   y_hi, y_lo (B, n) float, in/out, n = n1 - 1; dts (n_steps) double;
 //   rec_hi, rec_lo (n_steps / write_every, B, n) float: the state after
 //       every write_every steps (none when write_every == 0).
@@ -58,17 +85,27 @@
 
 namespace {
 
-struct __align__(16) Entry {
-  float vhi, vlo;
-  int jk;
-  int pad;
+constexpr int kLanes = 32;        // trajectories a block, one a lane
+constexpr int kChunk = 2;         // entries a chunk, one partial sum each
+constexpr int kLast = 1 << 16;    // ctl flag: the chunk ends its row
+constexpr int kMaxGroups = 8;
+constexpr int kRowBytes = kLanes * sizeof(float2);   // a state row, [lane]
+
+// The block's copy of a group's chunks, chunk c of the group at [c]:
+//   off  the gather offsets in bytes {j_a, k_a, j_b, k_b} * kRowBytes;
+//   val  the values {v_hi, v_lo} of entry a, then of entry b;
+//   ctl  state row i (0-based) | kLast on the row's last chunk.
+struct __align__(16) Chunk {
+  int4 off;
+  float4 val;
+  int ctl, pad[3];
 };
 
-__host__ __device__ size_t df_smem_bytes(int n1, int nnz, int bt) {
+__host__ __device__ size_t df_smem_bytes(int n1, int groups, int width) {
   const int n = n1 - 1;
-  return sizeof(Entry) * (size_t)nnz +
-         sizeof(float2) * (size_t)(3 * n + 2 * n1) * bt +
-         sizeof(int) * (size_t)(n1 + 1);
+  const size_t chunks = (size_t)groups * (width / kChunk);
+  return sizeof(Chunk) * chunks +
+         sizeof(float2) * (size_t)(3 * n + 2 * n1) * kLanes;
 }
 
 // -- error-free transformations and double-float ops ------------------------
@@ -122,78 +159,147 @@ __device__ __forceinline__ float2 axpy(float2 y, float2 c, float2 k) {
 
 // -- the kernel -------------------------------------------------------------
 
-struct Smem {
-  Entry* ent;    // [nnz]
-  float2* y;     // [n][bt]   state at the start of the step
-  float2* k1;    // [n][bt]
-  float2* s23;   // [n][bt]   k2 + k3
-  float2* xa;    // [n1][bt]  stage input, xx[0] == (1, 0)
-  float2* xb;    // [n1][bt]  the other stage input
-  int* row_ptr;  // [n1 + 1]
-};
-
-// Sum of row r of the tendency at stage input x (column tid of
-// [var][thread]), entries added left to right.
-__device__ __forceinline__ float2 row_sum(const Smem& s, const float2* x,
-                                         int r, int tid, int bt) {
-  float2 sum = make_float2(0.f, 0.f);
-  const int e1 = s.row_ptr[r + 1];
-  for (int e = s.row_ptr[r]; e < e1; ++e) {
-    const Entry en = s.ent[e];
-    const float2 xj = x[(en.jk & 0xffff) * bt + tid];
-    const float2 xk = x[(en.jk >> 16) * bt + tid];
-    sum = df_add(sum, df_mul(df_mul(make_float2(en.vhi, en.vlo), xj), xk));
-  }
-  return sum;
+// The lane's value of the state row at byte offset off from its column xt.
+__device__ __forceinline__ float2 gather(const char* __restrict__ xt,
+                                         int off) {
+  return *reinterpret_cast<const float2*>(xt + off);
 }
 
-__global__ void rk4_df_fused_kernel(
-    const int* __restrict__ row_ptr, const int* __restrict__ jk,
-    const float* __restrict__ vhi, const float* __restrict__ vlo, int n1,
-    int nnz, float* __restrict__ y_hi, float* __restrict__ y_lo, int B,
-    const double* __restrict__ dts, int n_steps, int write_every,
-    float* __restrict__ rec_hi, float* __restrict__ rec_lo) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int bt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int n = n1 - 1;
+// The two terms (v * xx[j]) * xx[k] of a chunk.
+__device__ __forceinline__ void terms(const char* __restrict__ xt, int4 off,
+                                      float4 val, float2& ta, float2& tb) {
+  ta = df_mul(df_mul(make_float2(val.x, val.y), gather(xt, off.x)),
+              gather(xt, off.y));
+  tb = df_mul(df_mul(make_float2(val.z, val.w), gather(xt, off.z)),
+              gather(xt, off.w));
+}
 
-  Smem s;
-  s.ent = reinterpret_cast<Entry*>(smem_raw);
-  s.y = reinterpret_cast<float2*>(s.ent + nnz);
-  s.k1 = s.y + n * bt;
-  s.s23 = s.k1 + n * bt;
-  s.xa = s.s23 + n * bt;
-  s.xb = s.xa + n1 * bt;
-  s.row_ptr = reinterpret_cast<int*>(s.xb + n1 * bt);
-
-  for (int e = tid; e < nnz; e += bt) {
-    Entry en;
-    en.vhi = vhi[e];
-    en.vlo = vlo[e];
-    en.jk = jk[e];
-    en.pad = 0;
-    s.ent[e] = en;
+// Row sum k of state row i = ctl & 0xffff (column t) into the stage's
+// outputs (row i of the state is row i + 1 of xo):
+//   stage 0: k1 = k;              xo = y + c k   (c = dt / 2)
+//   stage 1: s23 = k;             xo = y + c k   (c = dt / 2)
+//   stage 2: s23 = s23 + k;       xo = y + c k   (c = dt)
+//   stage 3: y = y + c ((k1 + k) + 2 s23);  xo = y   (c = dt / 6)
+__device__ __forceinline__ void combine(int st, int ctl, float2 k,
+                                        float2* __restrict__ xo,
+                                        float2* __restrict__ y,
+                                        float2* __restrict__ k1,
+                                        float2* __restrict__ s23, int t,
+                                        float2 c) {
+  const int o = (ctl & 0xffff) * kLanes + t;
+  if (st == 0) {
+    k1[o] = k;
+    xo[o + kLanes] = axpy(y[o], c, k);
+  } else if (st == 1) {
+    s23[o] = k;
+    xo[o + kLanes] = axpy(y[o], c, k);
+  } else if (st == 2) {
+    s23[o] = df_add(s23[o], k);
+    xo[o + kLanes] = axpy(y[o], c, k);
+  } else {
+    const float2 ksum = df_add(df_add(k1[o], k), df_scale(s23[o], 2.f));
+    const float2 yn = axpy(y[o], c, ksum);
+    y[o] = yn;
+    xo[o + kLanes] = yn;
   }
-  for (int r = tid; r <= n1; r += bt) s.row_ptr[r] = row_ptr[r];
-  // The only barrier: every thread, masked or not, reaches it.  After it each
-  // thread touches only its own column of the state arrays.
-  __syncthreads();
+}
 
-  const long long b = (long long)blockIdx.x * bt + tid;
-  if (b >= B) return;
+// One RK4 stage of one warp over the nc chunks ch of its group: the sums
+// of its rows at the stage input x, each combined at its row's last chunk.
+// While chunk c's terms are added, chunk c + 1's are computed and chunk
+// c + 2's records loaded (at most the layout's zero chunk past the end).
+// The stage and each chunk are the same for the whole warp: no divergence.
+__device__ __forceinline__ void stage(int st, const Chunk* __restrict__ ch,
+                                      int nc,
+                                      const float2* __restrict__ x,
+                                      float2* __restrict__ xo,
+                                      float2* __restrict__ y,
+                                      float2* __restrict__ k1,
+                                      float2* __restrict__ s23, int t,
+                                      float2 c) {
+  if (nc == 0) return;
+  const char* xt = reinterpret_cast<const char*>(x + t);
+  float2 ta, tb;
+  terms(xt, ch[0].off, ch[0].val, ta, tb);
+  int cur = ch[0].ctl;
+  int4 noff = ch[1].off;
+  float4 nval = ch[1].val;
+  float2 s0 = make_float2(0.f, 0.f), s1 = s0;
+#pragma unroll 2
+  for (int ci = 1; ci < nc; ++ci) {
+    const int4 nnoff = ch[ci + 1].off;    // chunk c + 2, read ahead
+    const float4 nnval = ch[ci + 1].val;
+    const int nctl = ch[ci].ctl;
+    float2 ua, ub;
+    terms(xt, noff, nval, ua, ub);        // chunk c + 1
+    s0 = df_add(s0, ta);                  // chunk c
+    s1 = df_add(s1, tb);
+    ta = ua;
+    tb = ub;
+    if (cur & kLast) {
+      combine(st, cur, df_add(s0, s1), xo, y, k1, s23, t, c);
+      s0 = make_float2(0.f, 0.f);
+      s1 = s0;
+    }
+    cur = nctl;
+    noff = nnoff;
+    nval = nnval;
+  }
+  s0 = df_add(s0, ta);                    // the last chunk ends its row
+  s1 = df_add(s1, tb);
+  combine(st, cur, df_add(s0, s1), xo, y, k1, s23, t, c);
+}
 
+__global__ void __launch_bounds__(kMaxGroups * kLanes, 4)
+rk4_df_fused_kernel(const int* __restrict__ jk, const int* __restrict__ ctl,
+                    const float* __restrict__ vhi,
+                    const float* __restrict__ vlo,
+                    const int* __restrict__ lengths, int width, int n1,
+                    float* __restrict__ y_hi, float* __restrict__ y_lo, int B,
+                    const double* __restrict__ dts, int n_steps,
+                    int write_every, float* __restrict__ rec_hi,
+                    float* __restrict__ rec_lo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int groups = blockDim.x / kLanes;
+  const int w = threadIdx.x / kLanes;
+  const int t = threadIdx.x % kLanes;
+  const int n = n1 - 1;
+  const int chunks = width / kChunk;      // a group's, zero chunks included
+
+  Chunk* cch = reinterpret_cast<Chunk*>(smem_raw);         // [group][chunk]
+  float2* sy = reinterpret_cast<float2*>(cch + groups * chunks);   // [n][lane]
+  float2* k1 = sy + n * kLanes;                                    // [n][lane]
+  float2* s23 = k1 + n * kLanes;                                   // [n][lane]
+  float2* xa = s23 + n * kLanes;                                   // [n1][lane]
+  float2* xb = xa + n1 * kLanes;                                   // [n1][lane]
+
+  for (int i = threadIdx.x; i < groups * chunks; i += blockDim.x) {
+    const int ea = kChunk * i, eb = ea + 1;     // the chunk's two records
+    cch[i].off = make_int4(
+        (jk[ea] & 0xffff) * kRowBytes, (jk[ea] >> 16) * kRowBytes,
+        (jk[eb] & 0xffff) * kRowBytes, (jk[eb] >> 16) * kRowBytes);
+    cch[i].val = make_float4(vhi[ea], vlo[ea], vhi[eb], vlo[eb]);
+    cch[i].ctl = ctl[ea];
+  }
+  const long long b = (long long)blockIdx.x * kLanes + t;
+  const bool live = b < B;
   float* yb_hi = y_hi + b * n;
   float* yb_lo = y_lo + b * n;
-  s.xa[tid] = make_float2(1.f, 0.f);
-  s.xb[tid] = make_float2(1.f, 0.f);
-  for (int i = 0; i < n; ++i) {
-    const float2 v = make_float2(yb_hi[i], yb_lo[i]);
-    s.y[i * bt + tid] = v;
-    s.xa[(i + 1) * bt + tid] = v;
+  for (int i = w; i < n; i += groups) {
+    const float2 v = live ? make_float2(yb_hi[i], yb_lo[i])
+                          : make_float2(0.f, 0.f);
+    sy[i * kLanes + t] = v;
+    xa[(i + 1) * kLanes + t] = v;
   }
+  if (w == 0) {
+    xa[t] = make_float2(1.f, 0.f);
+    xb[t] = make_float2(1.f, 0.f);
+  }
+  __syncthreads();
 
-  int rec = 0;
+  const Chunk* cw = cch + w * chunks;
+  const int nc = lengths[w] / kChunk;
+  int rec_i = 0;
   for (int step = 0; step < n_steps; ++step) {
     const double dt = dts[step];
     const float dt_hi = __double2float_rn(dt);
@@ -203,86 +309,64 @@ __global__ void rk4_df_fused_kernel(
                                     __fmul_rn(0.5f, dt_df.y));
     const float2 sixth = df_div_scalar(dt_df, 6.f);
 
-    // stage 1: k1 = f(xa);  xb = y + half k1
-    for (int r = 1; r < n1; ++r) {
-      const float2 k = row_sum(s, s.xa, r, tid, bt);
-      const int i = (r - 1) * bt + tid;
-      s.k1[i] = k;
-      s.xb[r * bt + tid] = axpy(s.y[i], half, k);
-    }
-    // stage 2: k2 = f(xb);  s23 = k2;  xa = y + half k2
-    for (int r = 1; r < n1; ++r) {
-      const float2 k = row_sum(s, s.xb, r, tid, bt);
-      const int i = (r - 1) * bt + tid;
-      s.s23[i] = k;
-      s.xa[r * bt + tid] = axpy(s.y[i], half, k);
-    }
-    // stage 3: k3 = f(xa);  s23 = k2 + k3;  xb = y + dt k3
-    for (int r = 1; r < n1; ++r) {
-      const float2 k = row_sum(s, s.xa, r, tid, bt);
-      const int i = (r - 1) * bt + tid;
-      s.s23[i] = df_add(s.s23[i], k);
-      s.xb[r * bt + tid] = axpy(s.y[i], dt_df, k);
-    }
-    // stage 4: k4 = f(xb);  y = y + sixth ((k1 + k4) + 2 (k2 + k3));  xa = y
-    for (int r = 1; r < n1; ++r) {
-      const float2 k = row_sum(s, s.xb, r, tid, bt);
-      const int i = (r - 1) * bt + tid;
-      const float2 ksum = df_add(df_add(s.k1[i], k), df_scale(s.s23[i], 2.f));
-      const float2 yn = axpy(s.y[i], sixth, ksum);
-      s.y[i] = yn;
-      s.xa[r * bt + tid] = yn;
-    }
+    stage(0, cw, nc, xa, xb, sy, k1, s23, t, half);    // k1
+    __syncthreads();
+    stage(1, cw, nc, xb, xa, sy, k1, s23, t, half);    // k2
+    __syncthreads();
+    stage(2, cw, nc, xa, xb, sy, k1, s23, t, dt_df);   // k3
+    __syncthreads();
+    stage(3, cw, nc, xb, xa, sy, k1, s23, t, sixth);   // k4 -> y
+    __syncthreads();
 
     if (write_every > 0 && (step + 1) % write_every == 0) {
-      const long long off = ((long long)rec * B + b) * n;
-      for (int i = 0; i < n; ++i) {
-        const float2 v = s.y[i * bt + tid];
-        rec_hi[off + i] = v.x;
-        rec_lo[off + i] = v.y;
+      if (live) {
+        const long long o = ((long long)rec_i * B + b) * n;
+        for (int i = w; i < n; i += groups) {
+          const float2 v = sy[i * kLanes + t];
+          rec_hi[o + i] = v.x;
+          rec_lo[o + i] = v.y;
+        }
       }
-      ++rec;
+      ++rec_i;
     }
   }
-
-  for (int i = 0; i < n; ++i) {
-    const float2 v = s.y[i * bt + tid];
-    yb_hi[i] = v.x;
-    yb_lo[i] = v.y;
+  if (live) {
+    for (int i = w; i < n; i += groups) {
+      const float2 v = sy[i * kLanes + t];
+      yb_hi[i] = v.x;
+      yb_lo[i] = v.y;
+    }
   }
 }
-
-// Threads per block: the state takes (3 n + 2 n1) pairs of shared memory per
-// thread (MAOOAM: about 52 KB a block of 32, 4 blocks an SM), halved for a
-// large model until it fits the block's shared-memory limit.
-constexpr int kBlockThreads = 32;
 
 }  // namespace
 
 extern "C" {
 
-int qgs_rk4_df_fused(const int* row_ptr, const int* jk, const float* vhi,
-                     const float* vlo, int n1, int nnz, float* y_hi,
-                     float* y_lo, int B, const double* dts, int n_steps,
-                     int write_every, float* rec_hi, float* rec_lo,
-                     void* stream) {
+int qgs_rk4_df_fused(const int* jk, const int* ctl, const float* vhi,
+                     const float* vlo, const int* lengths, int groups,
+                     int width, int n1, float* y_hi, float* y_lo, int B,
+                     const double* dts, int n_steps, int write_every,
+                     float* rec_hi, float* rec_lo, void* stream) {
   cudaGetLastError();  // clear an earlier, unrelated error
+  if (groups < 1 || groups > kMaxGroups || width < 2 * kChunk ||
+      width % kChunk)
+    return (int)cudaErrorInvalidValue;
   int device = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  int bt = kBlockThreads;
-  while (bt > 1 && df_smem_bytes(n1, nnz, bt) > (size_t)max_smem) bt /= 2;
-  const size_t smem = df_smem_bytes(n1, nnz, bt);
+  const size_t smem = df_smem_bytes(n1, groups, width);
+  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
   err = cudaFuncSetAttribute(rk4_df_fused_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (B + bt - 1) / bt;
-  rk4_df_fused_kernel<<<grid, bt, smem, (cudaStream_t)stream>>>(
-      row_ptr, jk, vhi, vlo, n1, nnz, y_hi, y_lo, B, dts, n_steps,
+  const int grid = (B + kLanes - 1) / kLanes;
+  rk4_df_fused_kernel<<<grid, groups * kLanes, smem, (cudaStream_t)stream>>>(
+      jk, ctl, vhi, vlo, lengths, width, n1, y_hi, y_lo, B, dts, n_steps,
       write_every, rec_hi, rec_lo);
   return (int)cudaGetLastError();
 }

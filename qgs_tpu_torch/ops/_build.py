@@ -49,8 +49,9 @@ def _declare(lib):
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32,
                        i32, ptr, ptr]
         fn.restype = i32
-    lib.qgs_rk4_df_fused.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr,
-                                     i32, ptr, i32, i32, ptr, ptr, ptr]
+    lib.qgs_rk4_df_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     ptr, ptr, i32, ptr, i32, i32, ptr, ptr,
+                                     ptr]
     lib.qgs_rk4_df_fused.restype = i32
     lib.qgs_cuda_error_string.argtypes = [i32]
     lib.qgs_cuda_error_string.restype = ctypes.c_char_p

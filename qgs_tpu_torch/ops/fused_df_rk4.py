@@ -9,21 +9,30 @@ classical RK4 steps of a rank-3 quadratic tendency in one launch, step ``s``
 of size ``dts[s]``, and records the state every ``write_every`` steps.
 
 * :func:`fused_df_rk4` launches the kernel for a CUDA state and counts the
-  launch in :data:`launches`.  For a CPU state it runs the plain version
-  instead (the kernel has no CPU build).
+  launch in :data:`launches`.  ``groups`` (one of
+  :data:`~qgs_tpu_torch.ops.fused_rk4.GROUPS`) sets the kernel's row groups
+  (warps) a block, over the layout
+  :func:`~qgs_tpu_torch.ops.fused_rk4.group_layout` of the fused RK4
+  kernel.  For a CPU state it runs the plain version instead (the kernel
+  has no CPU build).
 * :func:`fused_df_rk4_reference` is the plain PyTorch version: a step loop
   of :func:`qgs_tpu_torch.ops.twofloat.make_df_rk4_step_dynamic` over the
   plain contraction :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`.
+* :func:`df_group_tendency` evaluates the double-float tendency through
+  that layout in plain PyTorch, in the kernel's summation order.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from qgs_tpu_torch.ops import _build
-from qgs_tpu_torch.ops.fused_rk4 import (check_steps, device_layout,
+from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, DEFAULT_GROUPS, GROUPS, LAST,
+                                         check_steps, group_layout,
                                          raise_on_error, start_run)
-from qgs_tpu_torch.ops.twofloat import make_df_rk4_step_dynamic, split_values
+from qgs_tpu_torch.ops.twofloat import (df_add, df_mul,
+                                        make_df_rk4_step_dynamic, split_values)
 
 launches = 0             # kernel launches in this process (plain runs excluded)
 
@@ -46,6 +55,53 @@ def fused_df_rk4_reference(f, y_hi, y_lo, dts, write_every=0):
     return y, (empty, empty.clone())
 
 
+def _where(mask, a, b):
+    return tuple(torch.where(mask, p, q) for p, q in zip(a, b))
+
+
+def df_group_tendency(layout, x_hi, x_lo):
+    """The double-float tendency of the (B, n) pair ``(x_hi, x_lo)``
+    through ``layout`` (a :class:`~qgs_tpu_torch.ops.fused_rk4.GroupLayout`),
+    in plain PyTorch and in the kernel's order: each entry's term ``(v *
+    xx[j]) * xx[k]``, slot ``s`` of each chunk of a row added in order into
+    partial sum ``s`` (from (0, 0)), the two partial sums added at the
+    row's end.  The products by ``xx[0] = (1, 0)`` are done, as the
+    kernel does them."""
+    dev = x_hi.device
+    one = torch.ones_like(x_hi[:, :1])
+    xx = (torch.cat([one, x_hi], dim=1),
+          torch.cat([torch.zeros_like(one), x_lo], dim=1))
+    out = (torch.zeros_like(x_hi), torch.zeros_like(x_lo))
+    for g, length in enumerate(layout.lengths.tolist()):
+        if length == 0:
+            continue
+        vhi, vlo = (torch.as_tensor(v, device=dev)
+                    for v in split_values(layout.vals[g, :length]))
+        jk = torch.as_tensor(layout.jk[g, :length], device=dev)
+        term = (vhi.expand(x_hi.shape[0], -1), vlo.expand(x_hi.shape[0], -1))
+        for idx in (jk & 0xffff, jk >> 16):
+            term = df_mul(term, (xx[0][:, idx], xx[1][:, idx]))
+        # the group's rows side by side: each row's first record and chunk
+        # count; chunk c of every row that has one is added at once
+        ctl = layout.ctl[g, :length]
+        ends = (np.flatnonzero(ctl[::CHUNK] & LAST) + 1) * CHUNK
+        starts = np.concatenate([[0], ends[:-1]])
+        chunks = (ends - starts) // CHUNK
+        parts = [(torch.zeros_like(x_hi[:, :len(starts)]),) * 2] * CHUNK
+        for c in range(int(chunks.max())):
+            live = torch.as_tensor(c < chunks, device=dev)
+            at = torch.as_tensor(np.where(c < chunks, starts + c * CHUNK, 0),
+                                 device=dev)
+            for s in range(CHUNK):
+                new = df_add(parts[s], (term[0][:, at + s],
+                                        term[1][:, at + s]))
+                parts[s] = _where(live, new, parts[s])
+        rows = torch.as_tensor(ctl[starts] & (LAST - 1), device=dev)
+        for o, part in zip(out, df_add(parts[0], parts[1])):
+            o[:, rows] = part
+    return out
+
+
 def _check(f, y_hi, y_lo, dts, write_every):
     if not hasattr(f, "coords"):
         raise TypeError("fused_df_rk4 needs a DfTendency module (it carries "
@@ -64,11 +120,13 @@ def _check(f, y_hi, y_lo, dts, write_every):
     check_steps(y_hi, dts, write_every)
 
 
-def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0):
+def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0, groups=DEFAULT_GROUPS):
     """Advance the (B, n) double-float state ``(y_hi, y_lo)`` (float32
     each) by ``len(dts)`` RK4 steps of the tendency module ``f`` (a
     :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`) in one kernel launch;
-    ``dts`` (n_steps,) float64 on the state's device.
+    ``dts`` (n_steps,) float64 on the state's device.  ``groups`` (one of
+    :data:`~qgs_tpu_torch.ops.fused_rk4.GROUPS`) sets the kernel's row
+    groups a block.
 
     Returns ``((y_hi, y_lo), (rec_hi, rec_lo))``, records (n_steps //
     write_every, B, n) holding the state after every ``write_every`` steps.
@@ -76,6 +134,9 @@ def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0):
     :func:`fused_df_rk4_reference`; a CUDA state launches the kernel or
     raises."""
     global launches
+    if groups not in GROUPS:
+        raise ValueError(f"groups = {groups}: the kernel takes one of "
+                         f"{GROUPS}")
     if y_hi.device.type == "cpu":
         return fused_df_rk4_reference(f, y_hi, y_lo, dts, write_every)
     if y_hi.device.type != "cuda":
@@ -90,15 +151,19 @@ def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0):
         return (out_hi, out_lo), (rec_hi, rec_lo)
 
     dev = y_hi.device
-    row_ptr, jk, vals = device_layout(f, dev)
-    vhi, vlo = (torch.as_tensor(v, device=dev) for v in split_values(vals))
+    layout = group_layout(f.coords, f.data, f.shape, groups)
+    jk, ctl, lengths = (torch.as_tensor(a, device=dev)
+                        for a in (layout.jk, layout.ctl, layout.lengths))
+    vhi, vlo = (torch.as_tensor(v, device=dev)
+                for v in split_values(layout.vals))
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.qgs_rk4_df_fused(
-            row_ptr.data_ptr(), jk.data_ptr(), vhi.data_ptr(), vlo.data_ptr(),
-            f.shape[0], jk.numel(), out_hi.data_ptr(), out_lo.data_ptr(), B,
-            dts.data_ptr(), n_steps, write_every, rec_hi.data_ptr(),
-            rec_lo.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            jk.data_ptr(), ctl.data_ptr(), vhi.data_ptr(), vlo.data_ptr(),
+            lengths.data_ptr(), jk.shape[0], jk.shape[1], f.shape[0],
+            out_hi.data_ptr(), out_lo.data_ptr(), B, dts.data_ptr(), n_steps,
+            write_every, rec_hi.data_ptr(), rec_lo.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "rk4_df_fused")
     launches += 1
     return (out_hi, out_lo), (rec_hi, rec_lo)

@@ -14,13 +14,14 @@ the state every ``write_every`` steps.
 * :func:`fused_rk4_reference` is the plain PyTorch version: the same RK4
   formula (``qgs_tpu.integrators.rk.make_rk_step``'s, term by term) over the
   plain contraction :class:`~qgs_tpu_torch.ops.contraction.Tendency`.
-* :func:`group_layout` is the kernel's tensor layout: the output rows
-  split into G groups of about equal entry count, one warp of a block each,
+* :func:`group_layout` is the kernel's tensor layout, and the double-float
+  kernel's (:mod:`qgs_tpu_torch.ops.fused_df_rk4`): the output rows split
+  into G groups of about equal entry count, one warp of a block each,
   every group a flat table of entry records.  :func:`group_tendency`
   evaluates the tendency through that layout in plain PyTorch, group by
   group, in the kernel's summation order.
-* :func:`csr_layout` is the row-sorted layout of the double-float kernel
-  (:mod:`qgs_tpu_torch.ops.fused_df_rk4`).
+* :func:`csr_layout` is the row-sorted list of entries that
+  :func:`group_layout` is built from.
 """
 
 from __future__ import annotations
@@ -38,9 +39,10 @@ launches = 0             # kernel launches in this process (plain runs excluded)
 _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
 
 GROUPS = (1, 2, 4, 8)    # the kernel's choices of row groups (warps) a block
-# where the caller sets none: on the H100, G = 8 ties G = 4 at B = 16384 in
-# float64 and is the fastest of GROUPS at B = 4096 and 16384 otherwise
-# (PERF.md, Findings), so no rule on B is needed yet
+# where the caller sets none, for this kernel and the double-float one: on
+# the H100, G = 8 ties G = 4 at B = 16384 in float64 and is the fastest of
+# GROUPS at B = 4096 and 16384 otherwise (PERF.md, Findings), so no rule on
+# B is needed yet
 DEFAULT_GROUPS = 8
 CHUNK = 2                # entries a chunk: the kernel's partial sums a row
 AHEAD = 1                # chunks the kernel reads past a group's end
@@ -198,14 +200,6 @@ def start_run(y, n_steps, write_every):
     records (n_steps // write_every, B, n)."""
     n_rec = n_steps // write_every if write_every else 0
     return y.clone(), y.new_empty((n_rec,) + tuple(y.shape))
-
-
-def device_layout(f, device):
-    """:func:`csr_layout` of the module ``f``'s tensor: ``row_ptr`` and
-    ``jk`` on ``device``, the values as float64 on the host."""
-    row_ptr, jk, vals = csr_layout(f.coords, f.data, f.shape)
-    return (torch.as_tensor(row_ptr, device=device),
-            torch.as_tensor(jk, device=device), vals)
 
 
 def raise_on_error(err, kernel):
