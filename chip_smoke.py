@@ -24,11 +24,19 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    of each kernel at its main path's shapes, and of each kernel for every
    G at B = 4096 and 16384, with each kernel's bound (the least time the
    card could take for its operations or bytes) and its share of that
-   bound.
+   bound;
+6. the tangent-linear and Lyapunov paths on MAOOAM at full width (n_tg =
+   n_vec = 36): ``RungeKuttaTglsIntegrator`` in float64 (Taylor, adjoint
+   and card-against-CPU checks) and twofloat; backward vectors in both
+   precisions, forward vectors (their forward pass one launch of each
+   kernel, counted), Ginelli and subspace CLVs, card against CPU; times of
+   the TGLS step, the Benettin window and its QR, the two QR methods, and
+   the forward pass through K1 against its plain loop.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
-kernel's numbers, ``{"kernels": [...]}``.  Run from the repository root:
+kernel's numbers, ``{"kernels": [...]}``, and the one before that phase 6's
+numbers, ``{"tangent": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -143,6 +151,315 @@ def maooam_params(QgParams):
     pars.atemperature_params.set_insolation(103.3333, 0)
     pars.gotemperature_params.set_insolation(310., 0)
     return pars
+
+
+def best_ms(fn, count=1):
+    """The better of two CUDA-event timings of ``fn`` (after one warm-up
+    call), divided by ``count``."""
+    fn()
+    return min(cuda_ms(fn) for _ in range(2)) / count
+
+
+def unit_columns_err(v):
+    """Largest deviation of the column norms of (B, n, k, ...) from 1."""
+    return float((v.norm(dim=1) - 1).abs().max())
+
+
+def tangent_phase(f, Df, qgt, card, dev):
+    """6. The tangent-linear system and the Lyapunov toolbox on MAOOAM:
+    checks (each ``fail``s the run), then times.  Returns the numbers and
+    each kernel's launches on the forward-vector pass."""
+    import torch
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaTglsIntegrator
+    from qgs_tpu_torch.integrators.rk import (integrate_runge_kutta,
+                                              integrate_runge_kutta_tgls,
+                                              make_tgls_step, rk4_tableau)
+    from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+    from qgs_tpu_torch.ops.contraction import (make_direct_tangent,
+                                               make_tendency_fns)
+    from qgs_tpu_torch.ops.twofloat import (DfTendency, df_from_f64,
+                                            df_to_f64,
+                                            make_df_tangent_contraction,
+                                            make_df_tgls_rk4_step_dynamic)
+    from qgs_tpu_torch.toolbox import lyapunov as lyap
+
+    start = time.perf_counter()
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        fail("float32 matmuls may run in TF32: the tangent paths need IEEE "
+             "float32")
+    T, JT = qgt.tensor, qgt.jacobian_tensor
+    tensors = (T, JT)
+    n = T.shape[0] - 1
+    rng = np.random.default_rng(6)
+    ic = torch.as_tensor(rng.random((256, n)) * 0.01, device=dev)
+    out = {}
+
+    def fmat_close(name, got, ref):
+        scale = max(float(ref.abs().max()), 1.0)
+        return check_close(name, got, ref, dict(rtol=TOL64["rtol"],
+                                                atol=TOL64["atol"] * scale))
+
+    # -- TGLS float64: the integrator, B=256, 1000 steps of dt 0.1 --------
+    tgls = RungeKuttaTglsIntegrator()
+    tgls.set_func(f, Df)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tgls.integrate(0., 100., 0.1, ic=ic, write_steps=0)
+    _, x100, M = tgls.get_trajectories()
+    torch.cuda.synchronize()
+    out["tgls_f64_B256_1000_steps_s"] = s = time.perf_counter() - t0
+    print(f"[6] TGLS float64 integrate B={ic.shape[0]}, 1000 steps, tg_ic = "
+          f"I_{n}: "
+          f"{s:.3f} s ({s:.6f} ms/step); {card}", flush=True)
+    if (tuple(M.shape) != (256, n, n) or M.device.type != "cuda"
+            or not torch.isfinite(M).all()):
+        fail(f"fundamental matrices {tuple(M.shape)} on {M.device}")
+
+    # Taylor: x(t; x0 + eps v) - x(t; x0) through K1 against eps M v
+    fused_rk4.launches = 0
+    x0 = ic[:3]
+    v = torch.as_tensor(rng.standard_normal((3, n)), device=dev)
+    v = v / v.norm(dim=1, keepdim=True)
+    Mv = torch.einsum('bij,bj->bi', M[:3], v)
+    _, xt = integrate_runge_kutta(f.batched, 0., 100., 0.1, x0, write_steps=0)
+    rem = []
+    for eps in (1e-6, 1e-7):
+        _, xe = integrate_runge_kutta(f.batched, 0., 100., 0.1, x0 + eps * v,
+                                      write_steps=0)
+        rem.append(((xe - xt) - eps * Mv).norm(dim=1))
+    ratio = (rem[0] / rem[1]).cpu().numpy()
+    rel = float((rem[0] / (1e-6 * Mv.norm(dim=1))).max())
+    print(f"  Taylor (t=100, K1 launches {fused_rk4.launches}): remainder "
+          f"ratio eps 1e-6 / 1e-7 = {np.round(ratio, 3).tolist()}, relative "
+          f"remainder at 1e-6 {rel:.3e}", flush=True)
+    if fused_rk4.launches < 3:
+        fail("the Taylor check did not run through K1")
+    if not ((ratio > 50) & (ratio < 200)).all() or rel > 1e-3:
+        fail("the tangent-linear propagator fails the Taylor check")
+    out["taylor_remainder_ratio"] = ratio.tolist()
+
+    # adjoint identity over 100 pairs, one step (tests/test_tlad.py:77-96)
+    def mismatch(dt):
+        r = np.random.default_rng(3)
+        dy = torch.as_tensor(r.standard_normal((n, 100)), device=dev)
+        dyb = torch.as_tensor(r.standard_normal((n, 100)), device=dev)
+        _, _, tl = integrate_runge_kutta_tgls(f.batched, Df.batched, 0., dt,
+                                              dt, x100[:1], dy.T,
+                                              write_steps=0)
+        _, _, ad = integrate_runge_kutta_tgls(f.batched, Df.batched, 0., dt,
+                                              dt, x100[:1], dyb.T,
+                                              write_steps=0, adjoint=True)
+        n1, n2 = (tl * dyb).sum(0), (dy * ad).sum(0)
+        return float(((n1 - n2).abs() / n1.abs().clamp(min=1.0)).max())
+
+    err_h, err_h2 = mismatch(0.1), mismatch(0.05)
+    order = np.log2(err_h / err_h2)
+    print(f"  adjoint identity: {err_h:.3e} at dt 0.1, {err_h2:.3e} at dt "
+          f"0.05, order {order:.2f}", flush=True)
+    if err_h >= 1e-3 or order <= 2.5:
+        fail("the adjoint identity fails")
+
+    # card against CPU: the same call at B=8, 300 steps
+    f_c, Df_c = make_tendency_fns(T, JT, device="cpu")
+    res = {}
+    runs = {"cpu": (f_c, Df_c, ic[:8].cpu()),
+            "cuda": (f.batched, Df.batched, ic[:8])}
+    for name, (fn, jac, y) in runs.items():
+        integ = RungeKuttaTglsIntegrator()
+        integ.set_func(fn, jac)
+        integ.integrate(0., 30., 0.1, ic=y, write_steps=0)
+        res[name] = integ.get_trajectories()
+    check_close("TGLS float64 card vs CPU, B=8, 300 steps, trajectory",
+                res["cuda"][1], res["cpu"][1], TOL64)
+    fmat_close("TGLS float64 card vs CPU, fundamental matrices",
+               res["cuda"][2], res["cpu"][2])
+
+    # -- TGLS twofloat against TGLS float64 on the card, B=256, 300 steps --
+    ref = RungeKuttaTglsIntegrator()
+    ref.set_func(f, Df)
+    ref.integrate(0., 30., 0.1, ic=ic, write_steps=0)
+    tdf = RungeKuttaTglsIntegrator(precision="twofloat")
+    tdf.set_func(f, Df)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tdf.integrate(0., 30., 0.1, ic=ic, write_steps=0)
+    _, ydf, Mdf = tdf.get_trajectories()
+    torch.cuda.synchronize()
+    out["tgls_df_B256_300_steps_s"] = s = time.perf_counter() - t0
+    print(f"[6] TGLS twofloat integrate B={ic.shape[0]}, 300 steps: "
+          f"{s:.3f} s "
+          f"({s / 0.3:.3f} ms/step); {card}", flush=True)
+    check_close("TGLS twofloat vs float64 on the card, trajectory", ydf,
+                ref.get_trajectories()[1], TOL64)
+    fmat_close("TGLS twofloat vs float64 on the card, fundamental matrices",
+               Mdf, ref.get_trajectories()[2])
+
+    # -- Lyapunov, from an attractor state (10,000 K1 steps) ---------------
+    _, xa = integrate_runge_kutta(f.batched, 0., 1000., 0.1, ic[:16],
+                                  write_steps=0)
+    span = (0., 10., 60., 0.1, 0.1)
+    _, _, e64, q64 = lyap.compute_backward_lyapunovs(
+        f.batched, Df.batched, *span, xa, tensors=tensors)
+    _, _, edf, qdf = lyap.compute_backward_lyapunovs(
+        f.batched, Df.batched, *span, xa, tensors=tensors,
+        precision="twofloat")
+    blv_gap = float((e64.mean(-1) - edf.mean(-1)).abs().max())
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    orth = max(float((q[..., -1].mT @ q[..., -1] - eye).abs().max())
+               for q in (q64, qdf))
+    print(f"  BLV B=16 (0, 10, 60, 0.1, 0.1): twofloat vs float64 mean "
+          f"exponents {blv_gap:.3e} (limit 5e-8); Q orthonormal to "
+          f"{orth:.3e} (limit 1e-12); leading mean exponents "
+          f"{e64.mean(-1)[0, :3].tolist()}", flush=True)
+    if not blv_gap < 5e-8 or not orth < 1e-12:
+        fail("backward Lyapunov vectors: twofloat and float64 disagree")
+
+    # forward vectors through the estimator, each kernel's launches counted
+    flv, flv_launches = {}, {}
+    for precision in ("float64", "twofloat"):
+        est = lyap.LyapunovsEstimator(precision=precision)
+        est.set_func(f, Df)
+        fused_rk4.launches = fused_df_rk4.launches = 0
+        est.compute_lyapunovs(0., 10., 20., 0.1, 0.1, xa, forward=True)
+        flv_launches[precision] = {"rk4_fused": fused_rk4.launches,
+                                   "rk4_df_fused": fused_df_rk4.launches}
+        flv[precision] = est.get_lyapunovs()
+    print(f"  FLV B=16 (0, 10, 20) launches {flv_launches}", flush=True)
+    if (flv_launches["float64"]["rk4_fused"] < 1
+            or flv_launches["twofloat"]["rk4_df_fused"] < 1):
+        fail("the forward-vector pass did not launch its kernel")
+    _, _, e_plain, _ = lyap.compute_forward_lyapunovs(
+        lambda t, x: f.batched(t, x), Df.batched, 0., 10., 20., 0.1, 0.1, xa,
+        tensors=tensors)
+    err_flv = check_close("FLV float64, kernel route vs plain route, "
+                          "exponents", torch.as_tensor(flv["float64"][2]),
+                          e_plain, TOL64)
+    fdf = DfTendency(T.coords, T.data, T.shape, device=dev)
+    xa_df = df_from_f64(xa)
+    err_fwd_df = check_close(
+        "FLV twofloat forward pass, K2 vs plain route (200 windows)",
+        df_to_f64(lyap.forward_boundary_states(fdf, xa_df, 200, 1, 0.1)),
+        df_to_f64(lyap.forward_boundary_states(lambda h, lo: fdf(h, lo),
+                                               xa_df, 200, 1, 0.1)), TOL64)
+    flv_gap = float(np.abs(flv["float64"][2].mean(-1)
+                           - flv["twofloat"][2].mean(-1)).max())
+    print(f"  FLV twofloat vs float64 mean exponents {flv_gap:.3e}",
+          flush=True)
+
+    # CLVs at B=4
+    _, traj_g, _, clv_g = lyap.compute_clvs_ginelli(
+        f.batched, Df.batched, 0., 10., 20., 30., 0.1, 0.1, xa[:4],
+        tensors=tensors)
+    step = make_tgls_step(f.batched, Df.batched, *rk4_tableau())
+    T_g = clv_g.shape[-1]
+    y_k = torch.movedim(traj_g[..., :-1], -1, 0).reshape(-1, n)
+    c_k = torch.movedim(clv_g[..., :-1], -1, 0).reshape(-1, n, n)
+    _, c_next = step((y_k, c_k), 0., 0.1)
+    c_next = c_next / c_next.norm(dim=1, keepdim=True)
+    cov = float((c_next * torch.movedim(clv_g[..., 1:], -1, 0).reshape(
+        -1, n, n)).sum(1).abs().min())
+    norm_g = unit_columns_err(clv_g)
+    out_s = lyap.compute_clvs_subspace(
+        f.batched, Df.batched, 0., 10., 20., 30., 0.1, 0.1, xa[:4],
+        tensors=tensors, return_blvs=True)
+    clv_s, (_, blv_s) = out_s[3], out_s[4]
+    norm_s = unit_columns_err(clv_s)
+    align_s = float((clv_s[:, :, 0] * blv_s[:, :, 0]).sum(1).abs().min())
+    print(f"  CLVs B=4 (0, 10, 20, 30): Ginelli unit norms {norm_g:.3e}, "
+          f"covariance over one window min |cos| {cov:.15f} ({T_g} records); "
+          f"subspace unit norms {norm_s:.3e}, leading CLV vs leading BLV "
+          f"min |dot| {align_s:.15f}", flush=True)
+    if norm_g > 1e-10 or norm_s > 1e-10:
+        fail("CLVs are not unit vectors")
+    if cov < 1 - 1e-6 or align_s < 1 - 1e-6:
+        fail("CLVs: covariance or leading-vector alignment fails")
+    if not (torch.isfinite(out_s[2]).all() and torch.isfinite(clv_g).all()):
+        fail("non-finite CLV exponents or vectors")
+
+    # card against CPU, backward exponents at B=2
+    _, _, e_cpu, _ = lyap.compute_backward_lyapunovs(
+        f_c, Df_c, *span, xa[:2].cpu(), tensors=tensors)
+    err_blv_cpu = check_close("BLV B=2 card vs CPU, exponents",
+                              e64[:2], e_cpu, dict(rtol=0, atol=1e-9))
+
+    # -- times --------------------------------------------------------------
+    tab = rk4_tableau()
+    tangent = make_direct_tangent(JT, device=dev)
+    df_tangent = make_df_tangent_contraction(JT, device=dev)
+    steps = {
+        "float64, Jacobian route (the integrator)":
+            make_tgls_step(f.batched, Df.batched, *tab),
+        "float64, direct tangent (the Benettin window)":
+            make_tgls_step(f.batched, Df.batched, *tab, tangent=tangent),
+        "twofloat": make_df_tgls_rk4_step_dynamic(fdf, df_tangent)}
+    out["tgls_step_ms"] = {}
+    for B, counts in ((256, (20, 5)), (4096, (5, 2))):
+        y = torch.as_tensor(rng.random((B, n)) * 0.01, device=dev)
+        dm = torch.eye(n, dtype=torch.float64, device=dev).expand(B, n, n)
+        for name, step_fn in steps.items():
+            df = name == "twofloat"
+            carry = ((df_from_f64(y), df_from_f64(dm.contiguous())) if df
+                     else (y, dm))
+            count = counts[1] if df else counts[0]
+
+            def run():
+                c = carry
+                for _ in range(count):
+                    c = step_fn(c, 0., 0.1)
+            ms = best_ms(run, count)
+            out["tgls_step_ms"][f"{name} B={B}"] = ms
+            print(f"[6] TGLS step {name}, B={B}: {ms:.3f} ms/step "
+                  f"({B / ms * 1e3:.4g} traj-steps/s); {card}", flush=True)
+
+    out["window_ms"], out["qr_ms"] = {}, {}
+    for B in (16, 256):
+        y = xa[:B] if B <= 16 else ic
+        Q = torch.linalg.qr(torch.as_tensor(rng.standard_normal((n, n)),
+                                            device=dev))[0].expand(B, n, n)
+        for name, window, carry, count in (
+                ("float64", lyap.make_window_step(
+                    f.batched, Df.batched, 0.1, 0.1, tangent=tangent),
+                 (y, Q), 20),
+                ("twofloat", lyap.make_window_step_df(
+                    fdf, df_tangent, 0.1, 0.1),
+                 (df_from_f64(y), df_from_f64(Q.contiguous())), 10)):
+            def run():
+                c = carry
+                for _ in range(count):
+                    c, _ = window(c, 0.)
+            w_ms = best_ms(run, count)
+            M_b = torch.as_tensor(rng.standard_normal((B, n, n)), device=dev)
+            q_ms = best_ms(lambda: [lyap.batched_qr(M_b) for _ in range(20)],
+                           20)
+            out["window_ms"][f"{name} B={B}"] = w_ms
+            print(f"[6] Benettin window {name} (dt = mdt = 0.1), B={B}: "
+                  f"{w_ms:.3f} ms/window, QR {q_ms:.3f} ms, QR share "
+                  f"{q_ms / w_ms:.3f}; {card}", flush=True)
+    for B in (16, 256, 4096):
+        M_b = torch.as_tensor(rng.standard_normal((B, n, n)), device=dev)
+        qr = {m: best_ms(lambda: [lyap.batched_qr(M_b, m) for _ in range(10)],
+                         10) for m in ("householder", "cholqr2")}
+        out["qr_ms"][f"B={B}"] = qr
+        print(f"[6] batched_qr (B, {n}, {n}) float64, B={B}: householder "
+              f"{qr['householder']:.3f} ms, cholqr2 {qr['cholqr2']:.3f} ms, "
+              f"ratio {qr['householder'] / qr['cholqr2']:.2f}; {card}",
+              flush=True)
+    fwd = {"K1": best_ms(lambda: lyap.forward_boundary_states(
+        f.batched, xa, 500, 1, 0.1)),
+        "plain": best_ms(lambda: lyap.forward_boundary_states(
+            lambda t, x: f.batched(t, x), xa, 500, 1, 0.1))}
+    out["flv_forward_pass_ms"] = fwd
+    print(f"[6] FLV forward pass B=16, 500 windows of one step: K1 "
+          f"{fwd['K1']:.3f} ms, plain loop {fwd['plain']:.3f} ms; {card}",
+          flush=True)
+    out.update(blv_twofloat_vs_f64=blv_gap, flv_twofloat_vs_f64=flv_gap,
+               flv_kernel_vs_plain=err_flv, flv_df_forward_vs_plain=err_fwd_df,
+               blv_card_vs_cpu=err_blv_cpu, ginelli_covariance_min=cov,
+               subspace_alignment_min=align_s, adjoint=[err_h, err_h2],
+               seconds=time.perf_counter() - start, card=card)
+    print(f"[6] phase 6 took {out['seconds']:.1f} s", flush=True)
+    return out, flv_launches
 
 
 def main():
@@ -399,6 +716,9 @@ def main():
                       f"bound {b_ms:.3f} ms, share {b_ms / min(rs):.4f}; "
                       f"{card}", flush=True)
 
+    # -- 6. the tangent-linear and Lyapunov paths ----------------------------
+    tangent, flv_launches = tangent_phase(f, Df, qgt, card, dev)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -409,6 +729,7 @@ def main():
         "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
         "launches": launches["rk4_fused"],
+        "flv_launches": flv_launches["float64"]["rk4_fused"],
         "max_abs_err": max(errs64),
         "ms": times["f64"][0],
         "plain_ms": times["f64"][1],
@@ -435,6 +756,7 @@ def main():
         "source": "qgs_tpu_torch/csrc/rk4_df_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:107",
         "launches": launches["rk4_df_fused"],
+        "flv_launches": flv_launches["twofloat"]["rk4_df_fused"],
         "max_abs_err": err_df,
         "ms": times["df"][0],
         "plain_ms": times["df"][1],
@@ -452,6 +774,7 @@ def main():
                           if k.startswith("df ")},
         "card": card,
     }]
+    print(json.dumps({"tangent": tangent}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,12 +2,14 @@
 Ensemble integrator class
 =========================
 
-Counterpart of :class:`qgs_tpu.integrators.integrator.RungeKuttaIntegrator`:
-the reference API surface (``set_func`` / ``set_bca`` / ``initialize`` /
+Counterpart of :class:`qgs_tpu.integrators.integrator.RungeKuttaIntegrator`
+and :class:`~qgs_tpu.integrators.integrator.RungeKuttaTglsIntegrator`: the
+reference API surface (``set_func`` / ``set_bca`` / ``initialize`` /
 ``integrate`` / ``get_trajectories``) over one batched integration on one
 device (:func:`qgs_tpu_torch.integrators.rk.integrate_runge_kutta`, or
 :func:`~qgs_tpu_torch.integrators.rk.integrate_runge_kutta_df` for
-``precision='twofloat'``).
+``precision='twofloat'``; the TGLS counterparts for the coupled
+trajectory-tangent system).
 """
 
 from __future__ import annotations
@@ -16,10 +18,27 @@ import numpy as np
 import torch
 
 from qgs_tpu_torch.integrators.rk import (
-    infer_ndim, integrate_runge_kutta, integrate_runge_kutta_df, merge_tableau,
+    infer_ndim, integrate_runge_kutta, integrate_runge_kutta_df,
+    integrate_runge_kutta_tgls, integrate_runge_kutta_tgls_df, merge_tableau,
     rk4_tableau,
 )
-from qgs_tpu_torch.ops.twofloat import DfTendency
+from qgs_tpu_torch.ops.twofloat import DfTangent, DfTendency
+
+
+def same_model_jacobian(fjac, qgt):
+    """True when ``fjac`` derives from the same model as the tensor object
+    ``qgt``: the same object, or value-equal Jacobian tensors (a rebuild
+    from identical parameters).  A plain callable (no ``.qgtensor``) counts
+    as custom."""
+    other = getattr(fjac, "qgtensor", None)
+    if other is qgt:
+        return True
+    if other is None:
+        return False
+    a, b = other.jacobian_tensor, qgt.jacobian_tensor
+    return (tuple(a.shape) == tuple(b.shape)
+            and np.array_equal(a.coords, b.coords)
+            and np.array_equal(a.data, b.data))
 
 
 class RungeKuttaIntegrator:
@@ -42,12 +61,18 @@ class RungeKuttaIntegrator:
         :func:`~qgs_tpu_torch.models.tendencies.create_tendencies` (its
         ``.qgtensor`` carries the tensor) and takes any explicit tableau.
 
-    The integration runs on the device of the tendency function; the
-    trajectories returned by :meth:`get_trajectories` stay there.
+    device: str or torch.device, optional
+        The device for a tendency function that carries none (a plain
+        callable); default ``"cuda"``.
+
+    The integration runs on the device of the tendency function (else of a
+    tensor ``ic``, else ``device``); the trajectories returned by
+    :meth:`get_trajectories` stay there.
     """
 
     def __init__(self, num_threads=None, b=None, c=None, a=None,
-                 number_of_dimensions=None, precision="float64"):
+                 number_of_dimensions=None, precision="float64",
+                 device=None):
         if precision not in ("float64", "twofloat"):
             raise ValueError(
                 f"unknown precision {precision!r}: expected 'float64' (the "
@@ -63,6 +88,7 @@ class RungeKuttaIntegrator:
         self.precision = precision
         self._qgtensor = None
         self._df_func = None
+        self.device = device
 
     # -- configuration -----------------------------------------------------
 
@@ -102,12 +128,12 @@ class RungeKuttaIntegrator:
                 "step runs the model's tensor, and a plain callable would be "
                 "silently ignored")
         if self._df_func is None:
-            device = getattr(self.func, "device", None)
+            device = getattr(self.func, "device", self.device)
             if device is None:
                 raise RuntimeError(
                     "precision='twofloat' runs on the tendency function's "
                     "device, and this function carries none: build it with "
-                    "create_tendencies")
+                    "create_tendencies, or pass device= to the integrator")
             t = self._qgtensor.tensor
             self._df_func = DfTendency(t.coords, t.data, t.shape,
                                        device=device)
@@ -132,7 +158,7 @@ class RungeKuttaIntegrator:
                 raise ValueError("initialize without ic draws random initial "
                                  "states: pass rng=np.random.default_rng(seed)")
             if self.n_dim is None:
-                self.n_dim = infer_ndim(self.func)
+                self.n_dim = infer_ndim(self.func, self.device)
             if (reconverge and reconvergence_time is not None
                     and number_of_trajectories > 1):
                 seed_ic = rng.standard_normal(self.n_dim)
@@ -181,7 +207,7 @@ class RungeKuttaIntegrator:
             time, traj = integrate_runge_kutta(
                 self.func, t0, t, dt, ic, forward=forward,
                 write_steps=write_steps, b=self.b, c=self.c, a=self.a,
-                squeeze=False)
+                squeeze=False, device=self.device)
         self._time = time
         self._recorded_traj = traj.squeeze()
 
@@ -196,3 +222,110 @@ class RungeKuttaIntegrator:
 
     def set_ic(self, ic):
         self.ic = torch.atleast_2d(torch.as_tensor(ic))
+
+
+class RungeKuttaTglsIntegrator(RungeKuttaIntegrator):
+    """Ensemble integrator of the coupled (trajectory, tangent) system, with
+    the adjoint, inverse and boundary options (ref ``integrator.py:515-1296``),
+    through :func:`~qgs_tpu_torch.integrators.rk.integrate_runge_kutta_tgls`
+    or, for ``precision='twofloat'``,
+    :func:`~qgs_tpu_torch.integrators.rk.integrate_runge_kutta_tgls_df`.
+
+    The twofloat tier runs the model's tensors, so it needs a tendency
+    function from ``create_tendencies`` and a Jacobian of the same model; a
+    custom ``fjac`` or a ``boundary`` term raises there."""
+
+    def __init__(self, *args, **kwargs):
+        RungeKuttaIntegrator.__init__(self, *args, **kwargs)
+        self.func_jac = None
+        self.tg_ic = None
+        self._recorded_fmatrix = None
+        self._df_tangent = None
+
+    def set_func(self, f, fjac=None, ic_init=True):
+        """Set the tendency function and its Jacobian (single-state with
+        ``.batched``, or batched).  The model's tensors are kept (for the
+        twofloat tier) only when ``fjac`` derives from the same model, by
+        value equality of the Jacobian tensors."""
+        self.func = getattr(f, "batched", f)
+        qgt = getattr(f, "qgtensor", None)
+        if fjac is not None:
+            self.func_jac = getattr(fjac, "batched", fjac)
+            if qgt is not None and not same_model_jacobian(fjac, qgt):
+                qgt = None
+        self._qgtensor = qgt
+        self._df_func = self._df_tangent = None
+        if ic_init:
+            self.ic = None
+
+    def _check_twofloat(self, boundary):
+        if self._qgtensor is None:
+            raise RuntimeError(
+                "precision='twofloat' needs a tendency function from "
+                "create_tendencies (carrying its .qgtensor) and a Jacobian "
+                "derived from the same model: the double-float step runs the "
+                "model's tensors, and a custom fjac would be silently ignored")
+        if boundary is not None:
+            raise ValueError("precision='twofloat' does not support a "
+                             "boundary term")
+
+    def _df_pair(self):
+        """The double-float tendency and tangent contraction of the model,
+        built once per ``set_func``."""
+        f_df = self._df_tendency()
+        if self._df_tangent is None:
+            jt = self._qgtensor.jacobian_tensor
+            self._df_tangent = DfTangent(jt.coords, jt.data, jt.shape,
+                                         device=f_df.device)
+        return f_df, self._df_tangent
+
+    def integrate(self, t0, t, dt, ic=None, tg_ic=None, forward=True,
+                  adjoint=False, inverse=False, boundary=None, write_steps=1):
+        """Integrate the ensemble and its tangent blocks; results retrieved
+        via :meth:`get_trajectories`.  ``tg_ic`` defaults to the stored one,
+        else the identity."""
+        if self.func is None or self.func_jac is None:
+            raise RuntimeError("set_func(f, fjac) must be called first")
+        if ic is None:
+            ic = self.ic
+        if ic is None:
+            raise ValueError("no initial conditions available")
+        if not torch.is_tensor(ic):
+            ic = np.asarray(ic, dtype=np.float64)
+        single = ic.ndim == 1
+        self.n_dim = ic.shape[-1]
+        if tg_ic is None:
+            tg_ic = (self.tg_ic if self.tg_ic is not None
+                     else np.eye(self.n_dim))
+
+        if self.precision == "twofloat":
+            self._check_twofloat(boundary)
+            time, traj, fmat = integrate_runge_kutta_tgls_df(
+                *self._df_pair(), t0, t, dt, ic, tg_ic, forward=forward,
+                adjoint=adjoint, inverse=inverse, write_steps=write_steps,
+                a=self.a, b=self.b, c=self.c)
+        else:
+            time, traj, fmat = integrate_runge_kutta_tgls(
+                self.func, self.func_jac, t0, t, dt, ic, tg_ic,
+                forward=forward, adjoint=adjoint, inverse=inverse,
+                boundary=boundary, write_steps=write_steps, b=self.b,
+                c=self.c, a=self.a, device=self.device)
+        self._time = time
+        self._recorded_traj = traj.squeeze() if single else traj
+        self._recorded_fmatrix = fmat.squeeze() if single else fmat
+
+    def get_tg_ic(self):
+        """Return the stored tangent-linear initial conditions."""
+        return self.tg_ic
+
+    def set_tg_ic(self, tg_ic):
+        """Set the tangent-linear initial conditions: 1-D (one perturbation,
+        broadcast over the ensemble), 2-D (per-trajectory, or a matrix of
+        perturbations) or 3-D (per-trajectory matrices)."""
+        self.tg_ic = (tg_ic if torch.is_tensor(tg_ic)
+                      else np.asarray(tg_ic, dtype=np.float64))
+
+    def get_trajectories(self):
+        """Return ``(time, trajectories, fundamental_matrices)``: times as a
+        NumPy array, the others tensors on the integration's device."""
+        return self._time, self._recorded_traj, self._recorded_fmatrix

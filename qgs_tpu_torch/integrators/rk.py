@@ -22,6 +22,13 @@ batch of states (B, ndim), in the tendency's dtype
   Likewise classical RK4 of a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`
   on a CUDA state runs in the fused double-float kernel
   (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`).
+* The coupled (trajectory, tangent) system: :func:`make_tgls_step` and
+  :func:`integrate_runge_kutta_tgls` (the tangent through the materialized
+  Jacobian, or a direct contraction), :func:`integrate_runge_kutta_tgls_df`
+  in double-float.  These run the plain step loop.
+* Device: an entry point runs on the tendency function's ``.device``, else
+  on the device of a tensor ``ic``, else on ``device`` (default ``"cuda"``:
+  without a card PyTorch raises; there is no CPU fallback).
 """
 
 from __future__ import annotations
@@ -31,10 +38,11 @@ import torch
 
 from qgs_tpu_torch.ops import fused_df_rk4 as _fused_df
 from qgs_tpu_torch.ops import fused_rk4 as _fused
-from qgs_tpu_torch.ops.contraction import Tendency
+from qgs_tpu_torch.ops.contraction import Tendency, _with_dummy
 from qgs_tpu_torch.ops.twofloat import (
     DfTendency, df_from_f64, df_to_f64, make_df_rk4_step_dynamic,
-    make_df_rk_step_dynamic,
+    make_df_rk_step_dynamic, make_df_tgls_rk4_step_dynamic,
+    make_df_tgls_rk_step_dynamic,
 )
 
 
@@ -115,11 +123,78 @@ def make_rk_step(f, a, b, c):
     return step
 
 
-def infer_ndim(f):
+def make_tgls_step(f, fjac, a, b, c, adjoint=False, inverse=False,
+                   boundary=None, tangent=None):
+    """Single step ``step((y, dm), tt, dt) -> (y', dm')`` of the coupled
+    (trajectory, tangent) system, ``dm`` a (B, ndim, n_tg) block propagated
+    by ``d(dm)/dt = +-J(x) dm`` (``J^T`` for the adjoint, ``-`` for the
+    inverse) plus an optional inhomogeneous ``boundary(t, x)`` term (ref
+    ``integrate.py:556-614``).  The stages are :func:`make_rk_step`'s.
+
+    Without ``tangent`` the Jacobian ``fjac(t, y_s)`` is materialized; with
+    it, ``tangent(xx, dm)`` (a :class:`~qgs_tpu_torch.ops.contraction.Tangent`
+    carrying the adjoint/inverse transform itself) is applied to ``xx = [1,
+    y_s]``."""
+    s = len(b)
+    a = np.asarray(a)
+    b = np.asarray(b)
+    c = np.asarray(c)
+
+    def tangent_rhs(t, y_s, dm):
+        if tangent is not None:
+            hom = tangent(_with_dummy(y_s), dm)
+        else:
+            J = fjac(t, y_s)                             # (B, n, n)
+            hom = (J.transpose(-1, -2) if adjoint else J) @ dm
+            if inverse:
+                hom = -hom
+        if boundary is not None:
+            hom = hom + boundary(t, y_s)
+        return hom
+
+    def step(carry, tt, dt):
+        y, dm = carry
+        k, km = [], []
+        for i in range(s):
+            y_s, dm_s = y, dm
+            for l in range(i):
+                if a[i, l] != 0.0:
+                    h = _fused.scaled_dt(dt, a[i, l], y.dtype)
+                    y_s = y_s + h * k[l]
+                    dm_s = dm_s + h * km[l]
+            ts = tt + float(c[i]) * dt
+            k.append(f(ts, y_s))
+            km.append(tangent_rhs(ts, y_s, dm_s))
+        y_new, dm_new = y, dm
+        for i in range(s):
+            if b[i] != 0.0:
+                h = _fused.scaled_dt(dt, b[i], y.dtype)
+                y_new = y_new + h * k[i]
+                dm_new = dm_new + h * km[i]
+        return y_new, dm_new
+
+    return step
+
+
+def resolve_device(f, ic=None, device=None):
+    """The device an entry point runs on: ``f``'s own ``.device`` when it
+    has one, else the device of a tensor ``ic``, else ``device`` (default
+    ``"cuda"``)."""
+    dev = getattr(f, "device", None)
+    if dev is None and torch.is_tensor(ic):
+        dev = ic.device
+    if dev is None:
+        dev = "cuda" if device is None else device
+    return torch.device(dev)
+
+
+def infer_ndim(f, device=None):
     """Infer the state dimension of a batched tendency function by probing
     it with zero states of growing size until the output is consistent
-    (ref ``qgs/integrators/integrate.py:131-143``)."""
-    kw = {k: getattr(f, k) for k in ("dtype", "device") if hasattr(f, k)}
+    (ref ``qgs/integrators/integrate.py:131-143``), on the device that
+    :func:`resolve_device` gives."""
+    kw = dict(dtype=getattr(f, "dtype", torch.float64),
+              device=resolve_device(f, None, device))
     for n in range(1, 513):
         try:
             m = int(f(0., torch.zeros((1, n), **kw)).shape[-1])
@@ -131,21 +206,31 @@ def infer_ndim(f):
                      "tendency function; pass an explicit ic")
 
 
-def _as_state(f, ic):
-    """The initial condition as a 2-D tensor in ``f``'s dtype and on its
-    device (a plain callable keeps the tensor's own, or float64 on the CPU
-    for an array)."""
-    ic = ic if torch.is_tensor(ic) else torch.as_tensor(np.asarray(ic,
-                                                                   np.float64))
-    ic = ic.to(dtype=getattr(f, "dtype", ic.dtype),
-               device=getattr(f, "device", ic.device))
+def as_state(f, ic, device=None, dtype=None):
+    """The initial condition as a contiguous 2-D tensor on the device that
+    :func:`resolve_device` gives, in ``dtype``, else ``f``'s dtype, else
+    its own (float64 for an array that is not floating point)."""
+    dev = resolve_device(f, ic, device)
+    if not torch.is_tensor(ic):
+        ic = np.asarray(ic)
+        if not np.issubdtype(ic.dtype, np.floating):
+            ic = ic.astype(np.float64)
+        ic = torch.as_tensor(ic)
+    ic = ic.to(dtype=dtype or getattr(f, "dtype", ic.dtype), device=dev)
     return torch.atleast_2d(ic).contiguous()
+
+
+def _stack(recs):
+    """Stack records along a new first axis, part by part for tuples."""
+    if isinstance(recs[0], tuple):
+        return tuple(torch.stack(part) for part in zip(*recs))
+    return torch.stack(recs)
 
 
 def _step_loop(step, y, tts, dts, write_steps, record=lambda y: y):
     """Plain step loop: the records at steps 0, w, 2w, ... and the final
     step (the final state alone for w = 0), each passed through
-    ``record``, stacked."""
+    ``record``, stacked (part by part when a record is a tuple)."""
     n_steps = len(dts)
     recs = [record(y)] if write_steps > 0 else []
     for s in range(n_steps):
@@ -154,7 +239,7 @@ def _step_loop(step, y, tts, dts, write_steps, record=lambda y: y):
             recs.append(record(y))
     if write_steps == 0 or n_steps % write_steps:
         recs.append(record(y))
-    return torch.stack(recs)
+    return _stack(recs)
 
 
 def _assemble(y0, recs, final, n_steps, write_steps):
@@ -206,19 +291,20 @@ def _finish(time, recs, forward, write_steps, squeeze):
 
 
 def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
-                          b=None, c=None, a=None, squeeze=True):
+                          b=None, c=None, a=None, squeeze=True, device=None):
     """Integrate dx/dt = f(t, x) over [t0, t] for a batch of initial
     conditions; returns ``(times, traj)`` with traj shaped (B, ndim,
-    n_records) (squeezed), a tensor on ``f``'s device.
+    n_records) (squeezed), a tensor on the integration's device.
 
     ``f`` must be a *batched* tendency function (B, ndim) -> (B, ndim).  The
-    integration runs in ``f``'s dtype and on its device (``ic`` is cast and
-    moved there).  With ``ic=None`` the state dimension is probed from ``f``
-    and a zero initial condition is used.
+    integration runs in ``f``'s dtype (else ``ic``'s) and on the device that
+    :func:`resolve_device` gives (``ic`` is cast and moved there).  With
+    ``ic=None`` the state dimension is probed from ``f`` and a zero initial
+    condition is used.
     """
     if ic is None:
-        ic = np.zeros((1, infer_ndim(f)))
-    y = _as_state(f, ic)
+        ic = np.zeros((1, infer_ndim(f, device)))
+    y = as_state(f, ic, device)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)
@@ -231,7 +317,8 @@ def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
 
 
 def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
-                             squeeze=True, a=None, b=None, c=None):
+                             squeeze=True, a=None, b=None, c=None,
+                             device=None):
     """Integrate the model in double-float (pairs of float32) arithmetic:
     about 48-bit-mantissa trajectories, with the time grid and record
     semantics of :func:`integrate_runge_kutta`.  Counterpart of the JAX
@@ -239,16 +326,13 @@ def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
 
     ``f`` is a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`, or any
     ``f(y_hi, y_lo) -> (f_hi, f_lo)`` on (B, ndim) pairs.  ``ic`` is float64
-    (B, ndim) and the returned trajectory is float64, on ``f``'s device.
-    Any explicit Butcher tableau is accepted (default RK4); an implicit one
-    raises ``ValueError``.  Classical RK4 of a ``DfTendency`` on a CUDA
-    state runs in one launch of the fused kernel; every other case runs the
-    plain double-float step loop.
+    (B, ndim) and the returned trajectory is float64, on the device that
+    :func:`resolve_device` gives.  Any explicit Butcher tableau is accepted
+    (default RK4); an implicit one raises ``ValueError``.  Classical RK4 of a
+    ``DfTendency`` on a CUDA state runs in one launch of the fused kernel;
+    every other case runs the plain double-float step loop.
     """
-    ic = ic if torch.is_tensor(ic) else torch.as_tensor(np.asarray(ic))
-    ic = torch.atleast_2d(ic.to(dtype=torch.float64,
-                                device=getattr(f, "device", ic.device)))
-    y = df_from_f64(ic.contiguous())
+    y = df_from_f64(as_state(f, ic, device, torch.float64))
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)
@@ -263,3 +347,91 @@ def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
         recs = _step_loop(make_df_rk_step_dynamic(f, a, b, c), y, tts, dts,
                           write_steps, df_to_f64)
     return _finish(time, recs, forward, write_steps, squeeze)
+
+
+def normalize_tg_ic(tg_ic, B, n):
+    """A tangent initial condition as the (B, n, n_tg) block: 1-D is one
+    perturbation broadcast over the batch; 2-D is per-trajectory vectors
+    when shaped (B, n), else an (n_tg, n) matrix shared across the batch;
+    3-D with a transposed middle axis is swapped (the JAX package's
+    ``_normalize_tg_ic``)."""
+    tg = tg_ic if torch.is_tensor(tg_ic) else torch.as_tensor(
+        np.asarray(tg_ic))
+    if tg.dim() == 1:
+        tg = tg[None, :, None].expand(B, n, 1)
+    elif tg.dim() == 2:
+        if tg.shape[0] == B and tg.shape[1] == n:
+            tg = tg[:, :, None]
+        else:
+            tg = tg.T[None].expand(B, n, tg.shape[0])
+    elif tg.dim() == 3 and tg.shape[1] != n:
+        tg = tg.transpose(1, 2)
+    return tg
+
+
+def _tgls_start(f, ic, tg_ic, device, dtype=None):
+    """The state (B, n) and the tangent block (B, n, n_tg), in the state's
+    dtype and on its device."""
+    y = as_state(f, ic, device, dtype)
+    tg = normalize_tg_ic(tg_ic, *y.shape).to(y).contiguous()
+    return y, tg
+
+
+def _finish_tgls(time, recs, forward, write_steps):
+    """Record times, and the trajectory and fundamental matrices (B, ndim,
+    [n_tg,] n_records), squeezed, from the stacked ``(y, dm)`` records."""
+    rec_times, traj = _finish(time, recs[0], forward, write_steps, True)
+    _, fmat = _finish(time, recs[1], forward, write_steps, True)
+    return rec_times, traj, fmat
+
+
+def integrate_runge_kutta_tgls(f, fjac, t0, t, dt, ic, tg_ic, forward=True,
+                               adjoint=False, inverse=False, boundary=None,
+                               write_steps=1, b=None, c=None, a=None,
+                               device=None):
+    """Integrate the coupled (trajectory, tangent-linear) system over [t0,
+    t] with the Jacobian ``fjac`` materialized at every stage.
+
+    ``tg_ic`` may be (ndim,), (B, ndim), (n_tg, ndim) or (B, ndim, n_tg)
+    (see :func:`normalize_tg_ic`): a fundamental matrix of tangent vectors
+    is propagated.  Returns ``(times, traj, fmatrix)`` with the reference
+    shapes (B, ndim, n_records) and (B, ndim, n_tg, n_records), squeezed, as
+    tensors on the device that :func:`resolve_device` gives, in ``f``'s
+    dtype (else ``ic``'s)."""
+    y, tg = _tgls_start(f, ic, tg_ic, device)
+    if a is None and b is None and c is None:
+        a, b, c = rk4_tableau()
+    time, tts, dts = _directed_grid(t0, t, dt, forward)
+    step = make_tgls_step(f, fjac, a, b, c, adjoint=adjoint, inverse=inverse,
+                          boundary=boundary)
+    recs = _step_loop(step, (y, tg), tts, dts, write_steps)
+    return _finish_tgls(time, recs, forward, write_steps)
+
+
+def integrate_runge_kutta_tgls_df(f, tangent, t0, t, dt, ic, tg_ic,
+                                  forward=True, adjoint=False, inverse=False,
+                                  write_steps=1, a=None, b=None, c=None,
+                                  device=None):
+    """Integrate the coupled (trajectory, tangent) system in double-float
+    arithmetic, with the time grid, record and shape semantics of
+    :func:`integrate_runge_kutta_tgls`.  Counterpart of the JAX package's
+    ``integrate_runge_kutta_tgls_df``.
+
+    ``f`` is a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` and
+    ``tangent`` a :class:`~qgs_tpu_torch.ops.twofloat.DfTangent`, which
+    ``adjoint`` and ``inverse`` transform further.  ``ic`` and ``tg_ic``
+    are float64 and so are the results.  Any explicit Butcher tableau is
+    accepted (default RK4); there is no boundary term."""
+    y, tg = _tgls_start(f, ic, tg_ic, device, torch.float64)
+    tangent = tangent.with_transform(adjoint, inverse)
+    if a is None and b is None and c is None:
+        a, b, c = rk4_tableau()
+    if _is_rk4(a, b, c):
+        step = make_df_tgls_rk4_step_dynamic(f, tangent)
+    else:
+        step = make_df_tgls_rk_step_dynamic(f, tangent, a, b, c)
+    time, tts, dts = _directed_grid(t0, t, dt, forward)
+    recs = _step_loop(step, (df_from_f64(y), df_from_f64(tg)), tts, dts,
+                      write_steps, lambda c: (df_to_f64(c[0]),
+                                              df_to_f64(c[1])))
+    return _finish_tgls(time, recs, forward, write_steps)

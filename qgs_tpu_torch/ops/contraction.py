@@ -6,6 +6,7 @@ Counterpart of :mod:`qgs_tpu.ops.contraction` for rank-3 tendency tensors:
 
 * tendencies:  f_i  = sum_{jk} T[i,j,k] xx_j xx_k
 * Jacobian:    J_im = sum_{k}  JT[i,m,k] xx_k
+* tangent:     hom_it = sum_{mk} JT[i,m,k] xx_k dm_mt  (``J dm`` without J)
 
 over the state padded with the dummy constant, ``xx = [1, x]``.
 
@@ -134,6 +135,76 @@ class Jacobian(_RowPaddedContraction):
         flat = (coords[0][keep] - 1) * n + (coords[1][keep] - 1)
         vals, idxs = row_padded(flat, n * n, [coords[2][keep]], data[keep])
         super().__init__(vals, idxs, (n, n), dtype, device)
+
+
+def tangent_layout(coords, data, shape, adjoint=False, inverse=False):
+    """The row-padded layout of a direct tangent contraction of a rank-3
+    Jacobian tensor: ``(vals (n, R), idx_m (n, R), idx_k (n, R))``, entry
+    ``e`` at output row ``coords[0, e] - 1`` gathering tangent row ``m =
+    coords[1, e] - 1`` and state ``xx[coords[2, e]]``.  ``adjoint`` swaps
+    ``coords[0]`` and ``coords[1]`` and ``inverse`` negates the values, both
+    on the host; entries that touch the dummy row or column are dropped
+    (its tangent is identically zero)."""
+    _check_rank3(shape)
+    coords = [np.asarray(c, np.int64) for c in coords]
+    data = np.asarray(data, np.float64)
+    if inverse:
+        data = -data
+    if adjoint:
+        coords[0], coords[1] = coords[1], coords[0]
+    keep = (coords[0] != 0) & (coords[1] != 0)
+    vals, (idx_m, idx_k) = row_padded(coords[0][keep] - 1, int(shape[0]) - 1,
+                                      [coords[1][keep] - 1, coords[2][keep]],
+                                      data[keep])
+    return vals, idx_m, idx_k
+
+
+class Tangent(nn.Module):
+    """Direct tangent-linear contraction ``hom(xx, dm) -> (B, n, n_tg)``::
+
+        hom[b, i, t] = sum_e v_e * xx[b, k_e] * dm[b, m_e - 1, t]
+
+    of a rank-3 Jacobian tensor given as COO arrays ``coords`` (3, nnz),
+    ``data`` (nnz,) and ``shape`` (n1, n1, n1), over the dummy-padded state
+    ``xx`` (B, n1) and a tangent block ``dm`` (B, n, n_tg) without the dummy
+    row.  It is ``J(x) dm`` (``J^T dm`` for ``adjoint``, negated for
+    ``inverse``) without materializing J, on :func:`tangent_layout`: each
+    slot gathers the state at ``k`` and the tangent row at ``m``, and the
+    slots of an output row are summed.  The counterpart of the JAX
+    package's ``make_direct_tangent`` and ``make_bucketed_tangent``."""
+
+    def __init__(self, coords, data, shape, dtype=torch.float64,
+                 adjoint=False, inverse=False, device="cuda"):
+        super().__init__()
+        vals, idx_m, idx_k = tangent_layout(coords, data, shape, adjoint,
+                                            inverse)
+        self.register_buffer("vals", torch.as_tensor(vals, dtype=dtype,
+                                                     device=device))
+        self.register_buffer("idx_m", torch.as_tensor(idx_m, device=device))
+        self.register_buffer("idx_k", torch.as_tensor(idx_k, device=device))
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    def forward(self, xx, dm):
+        coef = self.vals * xx[:, self.idx_k]                     # (B, n, R)
+        return (coef[..., None] * dm[:, self.idx_m]).sum(dim=2)
+
+
+def make_direct_tangent(jtensor, dtype=torch.float64, adjoint=False,
+                        inverse=False, device="cuda"):
+    """:class:`Tangent` of a COO Jacobian tensor
+    (``QgsTensor.jacobian_tensor``)."""
+    return Tangent(jtensor.coords, jtensor.data, jtensor.shape, dtype,
+                   adjoint, inverse, device)
+
+
+make_bucketed_tangent = make_direct_tangent
 
 
 def from_numpy(coords, data, shape, dtype=torch.float64, device="cuda"):

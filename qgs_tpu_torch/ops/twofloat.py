@@ -19,9 +19,16 @@ about 48 bits of mantissa.
   the double-float RK steps ``step(y, tt, dt) -> y_new`` over a function
   ``f(y_hi, y_lo) -> (f_hi, f_lo)``.  The fused kernel ``csrc/rk4_df_fused.cu``
   computes the RK4 one (:mod:`qgs_tpu_torch.ops.fused_df_rk4`).
+  :func:`make_df_rk4_step` is the RK4 step with ``dt`` baked in.
+* :class:`DfTangent` is the double-float tangent contraction on the layout
+  of :class:`~qgs_tpu_torch.ops.contraction.Tangent`, and
+  :func:`make_df_tgls_rk4_step_dynamic`, :func:`make_df_tgls_rk4_step` and
+  :func:`make_df_tgls_rk_step_dynamic` are the coupled (trajectory,
+  tangent) steps.  The baked RK4 forms split ``dt / 2`` and ``dt / 6`` on
+  the host, which are not the bits of the dynamic form's exact half and
+  ``df_div_scalar(dt, 6)``.
 
-Rank-5 tensors and the double-float tangent system are not ported yet
-(ROADMAP queue 1, items 7 and 8).
+Rank-5 tensors are not ported yet (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from qgs_tpu_torch.ops.contraction import _check_rank3, row_padded
+from qgs_tpu_torch.ops.contraction import (_check_rank3, row_padded,
+                                           tangent_layout)
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +193,75 @@ class DfTendency(nn.Module):
         return self.vhi.device
 
     def forward(self, y_hi, y_lo):
-        xx_hi = torch.cat([torch.ones_like(y_hi[:, :1]), y_hi], dim=1)
-        xx_lo = torch.cat([torch.zeros_like(y_lo[:, :1]), y_lo], dim=1)
-        xj = (xx_hi[:, self.idx_j], xx_lo[:, self.idx_j])     # (B, n, R)
+        xx_hi, xx_lo = pad_dummy((y_hi, y_lo))
+        xj = (xx_hi[:, self.idx_j], xx_lo[:, self.idx_j])    # (B, n, R)
         xk = (xx_hi[:, self.idx_k], xx_lo[:, self.idx_k])
         t = df_mul(df_mul((self.vhi, self.vlo), xj), xk)
         return df_reduce_last(t)
+
+
+class DfTangent(nn.Module):
+    """Double-float tangent contraction ``hom(xx, dm) -> df (B, n, n_tg)``
+    over the dummy-padded state pair ``xx`` (B, n1) and the tangent block
+    pair ``dm`` (B, n, n_tg), of a rank-3 Jacobian tensor given as COO
+    arrays: the counterpart of the JAX package's
+    ``make_df_tangent_contraction``, on the layout of
+    :class:`~qgs_tpu_torch.ops.contraction.Tangent`.  Each slot is
+    ``df_mul(df_mul(v, xx[k]), dm[m])`` and the slots of an output row are
+    summed by :func:`df_reduce_last`.
+
+    The module keeps the untransformed host arrays and its ``adjoint`` and
+    ``inverse`` flags; :meth:`with_transform` composes a further
+    transform."""
+
+    def __init__(self, coords, data, shape, adjoint=False, inverse=False,
+                 device="cuda"):
+        super().__init__()
+        vals, idx_m, idx_k = tangent_layout(coords, data, shape, adjoint,
+                                            inverse)
+        vhi, vlo = split_values(vals)
+        for name, a in (("vhi", vhi), ("vlo", vlo), ("idx_m", idx_m),
+                        ("idx_k", idx_k)):
+            self.register_buffer(name, torch.as_tensor(a, device=device))
+        self.coords, self.data = coords, data
+        self.shape = tuple(int(s) for s in shape)
+        self.adjoint, self.inverse = adjoint, inverse
+
+    @property
+    def device(self):
+        return self.vhi.device
+
+    def with_transform(self, adjoint=False, inverse=False):
+        """This contraction, further transposed for ``adjoint`` and negated
+        for ``inverse`` (itself when neither is asked)."""
+        if not (adjoint or inverse):
+            return self
+        return DfTangent(self.coords, self.data, self.shape,
+                         self.adjoint != adjoint, self.inverse != inverse,
+                         self.device)
+
+    def forward(self, xx, dm):
+        xk = (xx[0][:, self.idx_k], xx[1][:, self.idx_k])      # (B, n, R)
+        coef = df_mul((self.vhi, self.vlo), xk)
+        dmg = (dm[0][:, self.idx_m], dm[1][:, self.idx_m])     # (B, n, R, t)
+        t = df_mul((coef[0][..., None], coef[1][..., None]), dmg)
+        return df_reduce_last((t[0].transpose(-1, -2),
+                               t[1].transpose(-1, -2)))
+
+
+def make_df_tangent_contraction(jtensor, adjoint=False, inverse=False,
+                                device="cuda"):
+    """:class:`DfTangent` of a COO Jacobian tensor
+    (``QgsTensor.jacobian_tensor``)."""
+    return DfTangent(jtensor.coords, jtensor.data, jtensor.shape, adjoint,
+                     inverse, device)
+
+
+def pad_dummy(y):
+    """Prepend the exact dummy 1 (lo 0) to a (B, n) state pair."""
+    one = torch.ones_like(y[0][:, :1])
+    return (torch.cat([one, y[0]], dim=1),
+            torch.cat([torch.zeros_like(one), y[1]], dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -229,17 +300,56 @@ def make_df_rk4_step_dynamic(f):
     ``_df_rk4_core``.  The model is autonomous: ``tt`` is unused."""
     def step(y, tt, dt):
         del tt
-        dt_df = df_const(float(dt), y[0].device)
-        half_dt = (0.5 * dt_df[0], 0.5 * dt_df[1])
-        sixth_dt = df_div_scalar(dt_df, 6.0)
-        k1 = f(*y)
-        k2 = f(*_axpy(y, half_dt, k1))
-        k3 = f(*_axpy(y, half_dt, k2))
-        k4 = f(*_axpy(y, dt_df, k3))
-        ksum = df_add(df_add(k1, k4), df_scale(df_add(k2, k3), 2.0))
-        return _axpy(y, sixth_dt, ksum)
+        return _rk4(f, y, *_dynamic_dts(dt, y[0].device))
 
     return step
+
+
+def make_df_rk4_step(f, dt, device="cuda"):
+    """Classical RK4 step ``step(y) -> y_new`` with ``dt`` baked in: ``dt``,
+    ``dt / 2`` and ``dt / 6`` each split into a pair on the host (the JAX
+    package's ``make_df_rk4_step``)."""
+    dts = _baked_dts(dt, device)
+
+    def step(y):
+        return _rk4(f, y, *dts)
+
+    return step
+
+
+def _dynamic_dts(dt, device):
+    """``(dt, dt / 2, dt / 6)`` as the dynamic RK4 steps form them: ``dt``
+    split by :func:`df_const`, its exact half and ``df_div_scalar(dt,
+    6)``."""
+    dt_df = df_const(float(dt), device)
+    return dt_df, (0.5 * dt_df[0], 0.5 * dt_df[1]), df_div_scalar(dt_df, 6.0)
+
+
+def _baked_dts(dt, device):
+    """``(dt, dt / 2, dt / 6)`` as the baked RK4 steps form them: each
+    quotient taken in float64 and split by :func:`df_const`."""
+    return (df_const(dt, device), df_const(dt / 2.0, device),
+            df_const(dt / 6.0, device))
+
+
+def _rk4(f, y, dt_df, half_dt, sixth_dt):
+    """The RK4 stages and the combine ``y + sixth_dt * ((k1 + k4) + 2 (k2 +
+    k3))``, as the JAX package's ``_df_rk4_core``."""
+    k1 = f(*y)
+    k2 = f(*_axpy(y, half_dt, k1))
+    k3 = f(*_axpy(y, half_dt, k2))
+    k4 = f(*_axpy(y, dt_df, k3))
+    ksum = df_add(df_add(k1, k4), df_scale(df_add(k2, k3), 2.0))
+    return _axpy(y, sixth_dt, ksum)
+
+
+def _tableau_consts(a, b, device):
+    """Each nonzero coefficient of an explicit tableau split into a pair on
+    the host: ``(a_consts, b_consts)``, ``None`` for a zero."""
+    s = len(b)
+    a_consts = [[df_const(a[i, l], device) if a[i, l] != 0.0 else None
+                 for l in range(s)] for i in range(s)]
+    return a_consts, [df_const(v, device) if v != 0.0 else None for v in b]
 
 
 def make_df_rk_step_dynamic(f, a, b, c):
@@ -253,19 +363,105 @@ def make_df_rk_step_dynamic(f, a, b, c):
         del tt                       # every qgs tendency is autonomous
         device = y[0].device
         dt_df = df_const(float(dt), device)
+        a_consts, b_consts = _tableau_consts(a, b, device)
         k = []
         for i in range(s):
             y_s = y
             for l in range(i):
-                if a[i, l] != 0.0:
-                    y_s = _axpy(y_s, df_mul(dt_df, df_const(a[i, l], device)),
-                                k[l])
+                if a_consts[i][l] is not None:
+                    y_s = _axpy(y_s, df_mul(dt_df, a_consts[i][l]), k[l])
             k.append(f(*y_s))
         y_new = y
         for i in range(s):
-            if b[i] != 0.0:
-                y_new = _axpy(y_new, df_mul(dt_df, df_const(b[i], device)),
-                              k[i])
+            if b_consts[i] is not None:
+                y_new = _axpy(y_new, df_mul(dt_df, b_consts[i]), k[i])
         return y_new
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# double-float tangent-linear (TGLS) steps
+# ---------------------------------------------------------------------------
+
+def _tgls_rhs(f, tangent):
+    """``rhs(y, dm) -> (f(y), tangent([1, y], dm))`` of the coupled system."""
+    def rhs(y, dm):
+        return f(*y), tangent(pad_dummy(y), dm)
+
+    return rhs
+
+
+def _tgls_rk4(rhs, carry, dt_df, half_dt, sixth_dt):
+    """One RK4 step of the coupled system, as the JAX package's
+    ``_df_tgls_rk4_core``."""
+    y, dm = carry
+    k1, m1 = rhs(y, dm)
+    k2, m2 = rhs(_axpy(y, half_dt, k1), _axpy(dm, half_dt, m1))
+    k3, m3 = rhs(_axpy(y, half_dt, k2), _axpy(dm, half_dt, m2))
+    k4, m4 = rhs(_axpy(y, dt_df, k3), _axpy(dm, dt_df, m3))
+    ks = df_add(df_add(k1, k4), df_scale(df_add(k2, k3), 2.0))
+    ms = df_add(df_add(m1, m4), df_scale(df_add(m2, m3), 2.0))
+    return _axpy(y, sixth_dt, ks), _axpy(dm, sixth_dt, ms)
+
+
+def make_df_tgls_rk4_step_dynamic(f, tangent):
+    """Classical RK4 step ``step((y, dm), tt, dt) -> (y', dm')`` of the
+    coupled (trajectory, tangent) system in double-float: ``f(y_hi, y_lo)``
+    the tendency (a :class:`DfTendency`), ``tangent(xx, dm)`` the tangent
+    contraction (a :class:`DfTangent`, carrying any adjoint or inverse
+    transform); ``dt`` split as :func:`make_df_rk4_step_dynamic` splits it."""
+    rhs = _tgls_rhs(f, tangent)
+
+    def step(carry, tt, dt):
+        del tt
+        return _tgls_rk4(rhs, carry, *_dynamic_dts(dt, carry[0][0].device))
+
+    return step
+
+
+def make_df_tgls_rk4_step(f, tangent, dt, device="cuda"):
+    """The coupled RK4 step ``step((y, dm)) -> (y', dm')`` with ``dt``
+    baked in as :func:`make_df_rk4_step` bakes it."""
+    rhs = _tgls_rhs(f, tangent)
+    dts = _baked_dts(dt, device)
+
+    def step(carry):
+        return _tgls_rk4(rhs, carry, *dts)
+
+    return step
+
+
+def make_df_tgls_rk_step_dynamic(f, tangent, a, b, c):
+    """The coupled double-float step ``step((y, dm), tt, dt) -> (y', dm')``
+    for any explicit Butcher tableau, each ``dt * coeff`` a scalar
+    double-float product (as :func:`make_df_rk_step_dynamic`)."""
+    a, b, c = _check_explicit_tableau(a, b, c)
+    s = len(b)
+    rhs = _tgls_rhs(f, tangent)
+
+    def step(carry, tt, dt):
+        del tt
+        (y, dm), device = carry, carry[0][0].device
+        dt_df = df_const(float(dt), device)
+        a_consts, b_consts = _tableau_consts(a, b, device)
+        k, km = [], []
+        for i in range(s):
+            y_s, dm_s = y, dm
+            for l in range(i):
+                if a_consts[i][l] is not None:
+                    cdf = df_mul(dt_df, a_consts[i][l])
+                    y_s = _axpy(y_s, cdf, k[l])
+                    dm_s = _axpy(dm_s, cdf, km[l])
+            ki, mi = rhs(y_s, dm_s)
+            k.append(ki)
+            km.append(mi)
+        y_new, dm_new = y, dm
+        for i in range(s):
+            if b_consts[i] is not None:
+                cdf = df_mul(dt_df, b_consts[i])
+                y_new = _axpy(y_new, cdf, k[i])
+                dm_new = _axpy(dm_new, cdf, km[i])
+        return y_new, dm_new
 
     return step

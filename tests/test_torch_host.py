@@ -50,6 +50,16 @@ def rp(QgParams):
     return pars
 
 
+def tlad(QgParams):
+    """The qgs_rp orography system of ``tests/test_tlad.py:17-20`` and
+    ``tests/test_lyapunov.py:187-190`` (ndim 20)."""
+    pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.3})
+    pars.set_atmospheric_channel_fourier_modes(2, 2)
+    pars.ground_params.set_orography(0.4, 1)
+    pars.atemperature_params.set_thetas(0.2, 0)
+    return pars
+
+
 def ground(QgParams):
     """Atmosphere + ground with orography and heat exchange (the analytic
     configuration of ``tests/test_model_and_ground.py``, ndim 30)."""
@@ -102,8 +112,8 @@ PORT_IPS = {False: (host.AtmosphericAnalyticInnerProducts,
             True: (host.AtmosphericSymbolicInnerProducts,
                    host.OceanicSymbolicInnerProducts, None)}
 
-CONFIGS = {"maooam": (maooam, 36), "rp": (rp, 20), "ground": (ground, 30),
-           "symbolic": (symbolic, 36)}
+CONFIGS = {"maooam": (maooam, 36), "rp": (rp, 20), "tlad": (tlad, 20),
+           "ground": (ground, 30), "symbolic": (symbolic, 36)}
 
 # derived parameters the tensor reads (qgs_tpu/tensors/qgtensor.py)
 DERIVED = ("ndim", "number_of_variables", "variables_range", "G", "Cpa",

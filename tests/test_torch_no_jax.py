@@ -1,6 +1,7 @@
 """The port stands on its own: a subprocess with ``jax`` and the JAX
-package ``qgs_tpu`` blocked imports ``qgs_tpu_torch``, builds MAOOAM and
-integrates 10 steps on the CPU in float64 and in twofloat; no source file
+package ``qgs_tpu`` blocked imports ``qgs_tpu_torch``, builds MAOOAM,
+integrates 10 steps on the CPU in float64 and in twofloat, 3 steps of the
+tangent-linear system and 2 Benettin windows; no source file
 of the port imports either; and the port builds on the CUDA card unless
 asked for the CPU."""
 
@@ -47,6 +48,23 @@ df.set_func(f)
 df.integrate(0., 1., 0.1, ic=np.random.default_rng(0).random((4, pars.ndim))
              * 0.01, write_steps=5)
 assert bool((df.get_trajectories()[1] - traj).abs().max() < 1e-12)
+
+from qgs_tpu_torch.integrators import integrate
+from qgs_tpu_torch.integrators.integrator import RungeKuttaTglsIntegrator
+from qgs_tpu_torch.toolbox.lyapunov import compute_backward_lyapunovs
+tgls = RungeKuttaTglsIntegrator()
+tgls.set_func(f, Df)
+tgls.integrate(0., 0.3, 0.1, ic=traj[:, :, -1], write_steps=1)
+t, y, M = tgls.get_trajectories()
+assert tuple(M.shape) == (4, 36, 36, 4) and bool(M.isfinite().all())
+_, _, M1 = integrate.integrate_runge_kutta_tgls(
+    f.batched, Df.batched, 0., 0.1, 0.1, traj[:, :, -1], np.eye(36),
+    write_steps=0)
+assert bool((M1 - M[..., 1]).abs().max() < 1e-12)
+t, y, exps, vecs = compute_backward_lyapunovs(
+    f.batched, Df.batched, 0., 0.1, 0.2, 0.1, 0.1, traj[:, :, -1],
+    tensors=(qgt.tensor, qgt.jacobian_tensor))
+assert tuple(vecs.shape) == (4, 36, 36, 2) and bool(exps.isfinite().all())
 assert sys.modules["jax"] is None and sys.modules["qgs_tpu"] is None
 print("OK", sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "qgs_tpu")))
