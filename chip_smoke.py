@@ -31,12 +31,22 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    precisions, forward vectors (their forward pass one launch of each
    kernel, counted), Ginelli and subspace CLVs, card against CPU; times of
    the TGLS step, the Benettin window and its QR, the two QR methods, and
-   the forward pass through K1 against its plain loop.
+   the forward pass through K1 against its plain loop;
+7. the rank-5 models (T4 and dynamic-T, ndim 38) built by
+   ``create_tendencies`` on the card: ``RungeKuttaIntegrator`` in float64
+   (B = 4096, 1000 steps) and twofloat (B = 1024, 300 steps) against the
+   plain float64 version, the card against the CPU (B = 8, 300 steps), no
+   launch of either rank-3 kernel on these paths; ``initialize`` without
+   ``number_of_dimensions``; times and peak memory of the rank-5 TGLS step
+   (B = 256) and of a T4 Benettin window (B = 16); then ``QgsModel`` of
+   MAOOAM saved and loaded, integrated (one K1 launch) and fed to
+   ``TrajectoriesStatistics``.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
-kernel's numbers, ``{"kernels": [...]}``, and the one before that phase 6's
-numbers, ``{"tangent": {...}}``.  Run from the repository root:
+kernel's numbers, ``{"kernels": [...]}``, the one before that phase 6's
+numbers, ``{"tangent": {...}}``, and the one before that phase 7's,
+``{"rank5": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -45,6 +55,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,26 +114,29 @@ def bound(flops, n_bytes, peak_flops):
 
 
 def entry_ops(coords, costs):
-    """Operations of one tendency evaluation of the rank-3 COO tensor
-    ``coords`` (output row 0, the dummy, dropped), and its entry count.
-    Since ``xx[0] = 1``, an entry costs ``costs[z]``, z the number of its
-    indices j, k that are 0: a quadratic term, a linear one (no product by
-    the 1) or a constant one."""
+    """Operations of one tendency evaluation of the COO tensor ``coords``
+    (output row 0, the dummy, dropped), and its entry count.  Since
+    ``xx[0] = 1``, an entry costs ``costs[z]``, z the number of its
+    trailing indices that are 0: for rank 3 a quadratic term, a linear one
+    (no product by the 1) or a constant one."""
     coords = np.asarray(coords)
     keep = coords[0] != 0
-    zeros = (coords[1][keep] == 0).astype(int) + (coords[2][keep] == 0)
+    zeros = (coords[1:, keep] == 0).sum(axis=0)
     return int(np.asarray(costs)[zeros].sum()), int(keep.sum())
 
 
 def rk4_work(B, n, coords, steps, itemsize):
     """Operations and device-memory bytes of ``steps`` RK4 steps of B
-    trajectories, with no records: each step four tendency evaluations (3
-    operations a quadratic entry, 2 a linear one, 1 a constant one) and the
-    combine, 14 operations a variable; bytes: the state read and written,
-    the step sizes and the tensor (index and value), each once."""
-    ops, nnz = entry_ops(coords, (3, 2, 1))
+    trajectories, with no records: each step four tendency evaluations (an
+    entry of a rank-r tensor costs one product a trailing index that is not
+    0 and one add: 3, 2 or 1 operations at rank 3) and the combine, 14
+    operations a variable; bytes: the state read and written, the step
+    sizes and the tensor (index and value), each once."""
+    rank = len(coords)
+    ops, nnz = entry_ops(coords, range(rank, 0, -1))
     flops = B * steps * (4 * ops + 14 * n)
-    n_bytes = 2 * itemsize * B * n + 8 * steps + nnz * (8 + itemsize)
+    n_bytes = (2 * itemsize * B * n + 8 * steps
+               + nnz * (4 * (rank - 1) + itemsize))
     return flops, n_bytes
 
 
@@ -462,6 +476,298 @@ def tangent_phase(f, Df, qgt, card, dev):
     return out, flv_launches
 
 
+def quartic_params(QgParams, **scheme):
+    """The symbolic 2x2 atmosphere + 2x4 ocean of ``tests/test_t4.py:20-23``
+    with a rank-5 radiation scheme (``T4=True`` or ``dynamic_T=True``)."""
+    pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8}, **scheme)
+    pars.set_params({'kd': 0.04, 'kdp': 0.04, 'n': 1.5})
+    pars.set_atmospheric_channel_fourier_modes(2, 2, mode='symbolic')
+    pars.set_oceanic_basin_fourier_modes(2, 4, mode='symbolic')
+    return pars
+
+
+def near_ic(pars, B, seed):
+    """B states near the stationary temperatures (``tests/test_t4.py``)."""
+    x = np.random.default_rng(seed).random((B, pars.ndim)) * 0.01
+    x[:, pars.variables_range[0]] = 0.1
+    x[:, pars.variables_range[2]] = 0.12
+    return x
+
+
+def peak_ms_mb(fn, count):
+    """``best_ms(fn, count)``, the peak of device memory allocated during
+    one more call and the memory allocated before it, in MB."""
+    import torch
+    ms = best_ms(fn, count)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**20
+    fn()
+    torch.cuda.synchronize()
+    return ms, torch.cuda.max_memory_allocated() / 2**20, base
+
+
+def rank5_phase(card, dev):
+    """7. The rank-5 models on the card, then ``QgsModel`` and
+    ``TrajectoriesStatistics``: checks (each ``fail``s the run) and times.
+    Returns the numbers."""
+    import torch
+    from qgs_tpu_torch.host import QgParams
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+    from qgs_tpu_torch.integrators.rk import (make_tgls_step, rk4_tableau,
+                                              time_grid)
+    from qgs_tpu_torch.integrators.statistics import TrajectoriesStatistics
+    from qgs_tpu_torch.models.model import QgsModel
+    from qgs_tpu_torch.models.tendencies import create_tendencies
+    from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+    from qgs_tpu_torch.ops.contraction import (make_direct_tangent,
+                                               make_tendency_fns)
+    from qgs_tpu_torch.ops.twofloat import (DfTangent, DfTendency,
+                                            df_from_f64,
+                                            make_df_tgls_rk4_step_dynamic)
+    from qgs_tpu_torch.toolbox import lyapunov as lyap
+
+    start = time.perf_counter()
+    out = {"card": card}
+    tab = rk4_tableau()
+
+    def counts():
+        return {"rk4_fused": fused_rk4.launches,
+                "rk4_df_fused": fused_df_rk4.launches}
+
+    fused_rk4.launches = fused_df_rk4.launches = 0
+    for name, scheme in (("t4", dict(T4=True)),
+                         ("dynT", dict(dynamic_T=True))):
+        res = out[name] = {}
+        t0 = time.perf_counter()
+        pars = quartic_params(QgParams, **scheme)
+        f, Df, qgt = create_tendencies(pars, return_qgtensor=True)
+        res["setup_s"] = time.perf_counter() - t0
+        T, JT = qgt.tensor, qgt.jacobian_tensor
+        n = pars.ndim
+        if (f.batched.device.type != "cuda" or len(T.shape) != 5
+                or n != 38):
+            fail(f"{name}: rank {len(T.shape)}, ndim {n} on "
+                 f"{f.batched.device}")
+        res["layout"] = {
+            "tendency_slots": f.batched.vals.numel()
+            + f.batched.chunks.numel(),
+            "tendency_chunk": f.batched.vals.shape[1],
+            "tendency_entries": int((T.coords[0] != 0).sum()),
+            "jacobian_slots": Df.batched.vals.numel()
+            + Df.batched.chunks.numel(),
+            "jacobian_chunk": Df.batched.vals.shape[1],
+            "jacobian_entries": int(((JT.coords[0] != 0)
+                                     & (JT.coords[1] != 0)).sum())}
+        print(f"[7] {name}: create_tendencies on the card in "
+              f"{res['setup_s']:.3f} s; layout {res['layout']}", flush=True)
+
+        # float64, B=4096, 1000 steps, a record every 100
+        ic = torch.as_tensor(near_ic(pars, 4096, 0), device=dev)
+        integ = RungeKuttaIntegrator()
+        integ.set_func(f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integ.integrate(0., 100., 0.1, ic=ic, write_steps=100)
+        times, traj = integ.get_trajectories()
+        torch.cuda.synchronize()
+        res["f64_B4096_1000_steps_s"] = s64 = time.perf_counter() - t0
+        if tuple(traj.shape) != (4096, n, 11) or not torch.isfinite(
+                traj).all() or len(times) != 11:
+            fail(f"{name} float64 trajectory {tuple(traj.shape)}")
+        dts = torch.as_tensor(np.diff(time_grid(0., 100., 0.1)), device=dev)
+        _, recs = fused_rk4.fused_rk4_reference(f.batched, ic, dts, 100)
+        res["f64_vs_plain"] = check_close(
+            f"{name} float64 integrate B=4096 1000 steps vs plain "
+            "fused_rk4_reference", traj, torch.movedim(
+                torch.cat([ic[None], recs]), 0, -1), TOL64)
+        print(f"[7] {name} float64 integrate B=4096, 1000 steps: {s64:.3f} s "
+              f"({4096 * 1000 / s64:.4g} traj-steps/s); {card}", flush=True)
+
+        # twofloat, B=1024, 300 steps, against the float64 run
+        idf = RungeKuttaIntegrator(precision="twofloat")
+        idf.set_func(f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idf.integrate(0., 30., 0.1, ic=ic[:1024], write_steps=100)
+        _, tdf = idf.get_trajectories()
+        torch.cuda.synchronize()
+        res["df_B1024_300_steps_s"] = sdf = time.perf_counter() - t0
+        res["df_vs_f64"] = check_close(
+            f"{name} twofloat integrate B=1024 300 steps vs float64", tdf,
+            traj[:1024, :, :4], TOL64)
+        print(f"[7] {name} twofloat integrate B=1024, 300 steps: {sdf:.3f} s "
+              f"({1024 * 300 / sdf:.4g} traj-steps/s); {card}", flush=True)
+
+        # the card against the CPU, B=8, 300 steps
+        f_c, _ = make_tendency_fns(T, JT, device="cpu")
+        ends = {}
+        for label, fn, y in (("cpu", f_c, ic[:8].cpu()),
+                             ("cuda", f.batched, ic[:8])):
+            icpu = RungeKuttaIntegrator()
+            icpu.set_func(fn)
+            icpu.integrate(0., 30., 0.1, ic=y, write_steps=0)
+            ends[label] = icpu.get_trajectories()[1]
+        res["card_vs_cpu"] = check_close(
+            f"{name} float64 card vs CPU, B=8, 300 steps", ends["cuda"],
+            ends["cpu"], TOL64)
+        del ic, traj, recs, tdf, integ, idf
+
+        # TGLS steps at B=256, identity tangent blocks: time and peak memory
+        fdf = DfTendency(T.coords, T.data, T.shape, device=dev)
+        steps = {
+            "float64, Jacobian route (the integrator)":
+                make_tgls_step(f.batched, Df.batched, *tab),
+            "float64, direct tangent (the Benettin window)":
+                make_tgls_step(f.batched, Df.batched, *tab,
+                               tangent=make_direct_tangent(JT, device=dev)),
+            "twofloat": make_df_tgls_rk4_step_dynamic(
+                fdf, DfTangent(JT.coords, JT.data, JT.shape, device=dev))}
+        y = torch.as_tensor(near_ic(pars, 256, 1), device=dev)
+        dm = torch.eye(n, dtype=torch.float64, device=dev).expand(
+            256, n, n).contiguous()
+        res["tgls_step_B256"] = {}
+        for label, step_fn in steps.items():
+            df = label == "twofloat"
+            carry = (df_from_f64(y), df_from_f64(dm)) if df else (y, dm)
+            count = 3 if df else 10
+
+            def run():
+                c = carry
+                for _ in range(count):
+                    c = step_fn(c, 0., 0.1)
+            ms, mb, base = peak_ms_mb(run, count)
+            res["tgls_step_B256"][label] = {"ms": ms, "peak_mb": mb,
+                                            "base_mb": base}
+            print(f"[7] {name} TGLS step {label}, B=256: {ms:.3f} ms/step "
+                  f"({256 / ms * 1e3:.4g} traj-steps/s), peak "
+                  f"{mb:.1f} MB allocated ({base:.1f} MB before it); "
+                  f"{card}", flush=True)
+            if mb >= 2048:
+                fail(f"{name} TGLS step {label} peaks at {mb:.1f} MB "
+                     "(limit 2 GB)")
+
+        # the rank-5 plain RK4 step, B=4096, against the least time the
+        # card could take for it
+        yb = torch.as_tensor(near_ic(pars, 4096, 2), device=dev)
+        ms = best_ms(lambda: fused_rk4.fused_rk4_reference(
+            f.batched, yb, dts[:10]), 10)
+        b_ms, b_by = bound(*rk4_work(4096, n, T.coords, 1, 8),
+                           PEAK_FLOPS["f64"])
+        res["rk4_step_B4096"] = {"ms": ms, "bound_ms": b_ms,
+                                 "bound_by": b_by}
+        print(f"[7] {name} plain RK4 step B=4096: {ms:.3f} ms/step "
+              f"({4096 / ms * 1e3:.4g} traj-steps/s), bound {b_ms:.4f} ms "
+              f"({b_by}), share {b_ms / ms:.5f}; {card}", flush=True)
+
+        if name == "t4":
+            # Benettin windows at B=16 (one substep, dt = mdt = 0.1)
+            y16 = y[:16]
+            Q = torch.linalg.qr(torch.as_tensor(np.random.default_rng(
+                3).standard_normal((n, n)), device=dev))[0].expand(
+                    len(y16), n, n)
+            res["window_B16"] = {}
+            for label, window, carry, count in (
+                    ("float64", lyap.make_window_step(
+                        f.batched, Df.batched, 0.1, 0.1,
+                        tangent=make_direct_tangent(JT, device=dev)),
+                     (y16, Q), 10),
+                    ("twofloat", lyap.make_window_step_df(
+                        fdf, DfTangent(JT.coords, JT.data, JT.shape,
+                                       device=dev), 0.1, 0.1),
+                     (df_from_f64(y16), df_from_f64(Q.contiguous())), 5)):
+                def run():
+                    c = carry
+                    for _ in range(count):
+                        c, _ = window(c, 0.)
+                ms, mb, base = peak_ms_mb(run, count)
+                res["window_B16"][label] = {"ms": ms, "peak_mb": mb,
+                                            "base_mb": base}
+                print(f"[7] T4 Benettin window {label}, B=16: {ms:.3f} "
+                      f"ms/window, peak {mb:.1f} MB allocated ({base:.1f} "
+                      f"MB before it); {card}", flush=True)
+            _, _, e64, _ = lyap.compute_backward_lyapunovs(
+                f.batched, Df.batched, 0., 0.5, 1., 0.1, 0.1, y16,
+                tensors=(T, JT))
+            _, _, edf, _ = lyap.compute_backward_lyapunovs(
+                f.batched, Df.batched, 0., 0.5, 1., 0.1, 0.1, y16,
+                tensors=(T, JT), precision="twofloat")
+            res["blv_df_vs_f64"] = check_close(
+                "T4 BLV B=16 (0, 0.5, 1) twofloat vs float64 exponents", edf,
+                e64, dict(rtol=0, atol=1e-9))
+
+        # the dimension probe: initialize without number_of_dimensions
+        integ = RungeKuttaIntegrator()
+        integ.set_func(f)
+        integ.initialize(1., 0.1, number_of_trajectories=4,
+                         rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        integ.integrate(0., 1., 0.1, write_steps=0)
+        x = integ.get_trajectories()[1]
+        torch.cuda.synchronize()
+        if integ.n_dim != n or not torch.isfinite(x).all():
+            fail(f"{name}: initialize without number_of_dimensions")
+
+    out["rank5_launches"] = counts()
+    print(f"[7] launches across the rank-5 runs: {out['rank5_launches']}",
+          flush=True)
+    if any(out["rank5_launches"].values()):
+        fail("a rank-3 kernel was launched on a rank-5 path")
+
+    # the dimension probe on MAOOAM (the fault's own case), then QgsModel
+    pars = maooam_params(QgParams)
+    f, _ = create_tendencies(pars)
+    integ = RungeKuttaIntegrator()
+    integ.set_func(f)
+    integ.initialize(1., 0.1, number_of_trajectories=4,
+                     rng=np.random.default_rng(0))
+    torch.cuda.synchronize()
+    integ.integrate(0., 1., 0.1, write_steps=0)
+    torch.cuda.synchronize()
+    if integ.n_dim != pars.ndim:
+        fail("MAOOAM: initialize without number_of_dimensions")
+    print("[7] initialize(rng=) without number_of_dimensions, then a sync: "
+          "T4, dynamic-T and MAOOAM ok", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "maooam.qgs")
+        QgsModel(pars).save(path)
+        model = QgsModel.load(path)
+    ic = np.random.default_rng(0).random((64, pars.ndim)) * 0.01
+    integ = RungeKuttaIntegrator()
+    integ.set_func(model.f)
+    fused_rk4.launches = fused_df_rk4.launches = 0
+    integ.integrate(0., 100., 0.1, ic=ic, write_steps=10)
+    out["qgs_model_launches"] = counts()
+    _, traj = integ.get_trajectories()
+    _, ref = fused_rk4.fused_rk4_reference(
+        model.f.batched, torch.as_tensor(ic, device=dev),
+        torch.as_tensor(np.diff(time_grid(0., 100., 0.1)), device=dev), 10)
+    out["qgs_model_vs_plain"] = check_close(
+        "QgsModel (loaded) integrate B=64 1000 steps vs plain", traj[..., 1:],
+        torch.movedim(ref, 0, -1), TOL64)
+    print(f"[7] QgsModel(MAOOAM) saved, loaded, integrated: launches "
+          f"{out['qgs_model_launches']}", flush=True)
+    if out["qgs_model_launches"] != {"rk4_fused": 1, "rk4_df_fused": 0}:
+        fail("the loaded QgsModel did not run through one K1 launch")
+    stats = TrajectoriesStatistics()
+    stats.set_integrator(integ)
+    stats.set_func_list([lambda tr: tr[:, :, -1], lambda tr: tr.mean(-1)])
+    means = stats.compute_stats(0., 10., 0.1, ic=traj[:, :, -1],
+                                write_steps=10, num=4)
+    integ.integrate(0., 10., 0.1, ic=traj[:, :, -1], write_steps=10)
+    whole = integ.get_trajectories()[1]
+    out["statistics_vs_whole"] = check_close(
+        "TrajectoriesStatistics (4 batches) vs the whole ensemble", means,
+        torch.stack([whole[:, :, -1].mean(0), whole.mean(-1).mean(0)]),
+        dict(rtol=0, atol=1e-12))
+    if means.device.type != "cuda":
+        fail(f"statistics on {means.device}")
+    out["seconds"] = time.perf_counter() - start
+    print(f"[7] phase 7 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     try:
@@ -719,6 +1025,9 @@ def main():
     # -- 6. the tangent-linear and Lyapunov paths ----------------------------
     tangent, flv_launches = tangent_phase(f, Df, qgt, card, dev)
 
+    # -- 7. the rank-5 models, QgsModel and TrajectoriesStatistics ----------
+    rank5 = rank5_phase(card, dev)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -774,6 +1083,7 @@ def main():
                           if k.startswith("df ")},
         "card": card,
     }]
+    print(json.dumps({"rank5": rank5}), flush=True)
     print(json.dumps({"tangent": tangent}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

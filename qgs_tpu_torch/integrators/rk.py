@@ -14,14 +14,15 @@ batch of states (B, ndim), in the tendency's dtype
   recorded points are ``time[::w]`` plus the final point.
 * The JAX package's ``lax.scan`` over record chunks becomes a step loop that
   keeps only the recorded states.
-* Routing: classical RK4 of a :class:`~qgs_tpu_torch.ops.contraction.Tendency`
-  on a CUDA state runs the whole loop in the fused kernel
-  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`).  Every other case (the
-  CPU, other tableaux, tendency functions that carry no tensor) runs the
-  step loop with plain tensor operations, which the kernel does not cover.
-  Likewise classical RK4 of a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`
-  on a CUDA state runs in the fused double-float kernel
-  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`).
+* Routing: classical RK4 of a rank-3
+  :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a CUDA state runs the
+  whole loop in the fused kernel
+  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`).  Every other case (the CPU, other tableaux, rank-5 tensors, tendency
+  functions that carry no tensor) runs the step loop with plain tensor
+  operations, which the kernel does not cover.  Likewise classical RK4 of a
+  rank-3 :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA state
+  runs in the fused double-float kernel
+  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`) (:func:`fused_route`).
 * The coupled (trajectory, tangent) system: :func:`make_tgls_step` and
   :func:`integrate_runge_kutta_tgls` (the tangent through the materialized
   Jacobian, or a direct contraction), :func:`integrate_runge_kutta_tgls_df`
@@ -189,10 +190,16 @@ def resolve_device(f, ic=None, device=None):
 
 
 def infer_ndim(f, device=None):
-    """Infer the state dimension of a batched tendency function by probing
-    it with zero states of growing size until the output is consistent
-    (ref ``qgs/integrators/integrate.py:131-143``), on the device that
-    :func:`resolve_device` gives."""
+    """The state dimension of a batched tendency function.  A module that
+    carries its tensor (a :class:`~qgs_tpu_torch.ops.contraction.Tendency`
+    or :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`: a tuple ``.shape``
+    of its COO tensor) gives ``shape[0] - 1`` without being called; a plain
+    callable is probed with zero states of growing size until the output is
+    consistent (ref ``qgs/integrators/integrate.py:131-143``), on the device
+    that :func:`resolve_device` gives."""
+    shape = getattr(f, "shape", None)
+    if isinstance(shape, tuple):
+        return int(shape[0]) - 1
     kw = dict(dtype=getattr(f, "dtype", torch.float64),
               device=resolve_device(f, None, device))
     for n in range(1, 513):
@@ -218,6 +225,18 @@ def as_state(f, ic, device=None, dtype=None):
         ic = torch.as_tensor(ic)
     ic = ic.to(dtype=dtype or getattr(f, "dtype", ic.dtype), device=dev)
     return torch.atleast_2d(ic).contiguous()
+
+
+def fused_route(f, y, tableau):
+    """Whether a fused RK4 kernel runs ``f`` on the state ``y``: classical
+    RK4 of a rank-3 :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a
+    CUDA state, or of a rank-3
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair (the
+    kernels take rank 3 only)."""
+    y0 = y[0] if isinstance(y, tuple) else y
+    kind = DfTendency if isinstance(y, tuple) else Tendency
+    return (_is_rk4(*tableau) and isinstance(f, kind) and len(f.shape) == 3
+            and y0.is_cuda)
 
 
 def _stack(recs):
@@ -309,7 +328,7 @@ def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)
 
-    if _is_rk4(a, b, c) and isinstance(f, Tendency) and y.is_cuda:
+    if fused_route(f, y, (a, b, c)):
         recs = _fused_loop(f, y, dts, write_steps)
     else:
         recs = _step_loop(make_rk_step(f, a, b, c), y, tts, dts, write_steps)
@@ -329,20 +348,19 @@ def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
     (B, ndim) and the returned trajectory is float64, on the device that
     :func:`resolve_device` gives.  Any explicit Butcher tableau is accepted
     (default RK4); an implicit one raises ``ValueError``.  Classical RK4 of a
-    ``DfTendency`` on a CUDA state runs in one launch of the fused kernel;
-    every other case runs the plain double-float step loop.
+    rank-3 ``DfTendency`` on a CUDA state runs in one launch of the fused
+    kernel; every other case runs the plain double-float step loop.
     """
     y = df_from_f64(as_state(f, ic, device, torch.float64))
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)
 
-    if _is_rk4(a, b, c):
-        if isinstance(f, DfTendency) and y[0].is_cuda:
-            recs = _fused_df_loop(f, y, dts, write_steps)
-        else:
-            recs = _step_loop(make_df_rk4_step_dynamic(f), y, tts, dts,
-                              write_steps, df_to_f64)
+    if fused_route(f, y, (a, b, c)):
+        recs = _fused_df_loop(f, y, dts, write_steps)
+    elif _is_rk4(a, b, c):
+        recs = _step_loop(make_df_rk4_step_dynamic(f), y, tts, dts,
+                          write_steps, df_to_f64)
     else:
         recs = _step_loop(make_df_rk_step_dynamic(f, a, b, c), y, tts, dts,
                           write_steps, df_to_f64)

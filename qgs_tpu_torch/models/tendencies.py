@@ -4,9 +4,12 @@ Tendencies factory
 
 Counterpart of :mod:`qgs_tpu.models.tendencies`: ``create_tendencies``
 builds the inner products and the tendency tensor on the host (the port's
-NumPy/SymPy layers, :mod:`qgs_tpu_torch.host`) and returns the PyTorch tendency ``f(t, x)``
-and Jacobian ``Df(t, x)`` on single states, with their batched versions
-attached as ``.batched`` and the tensor object as ``.qgtensor``.
+NumPy/SymPy layers, :mod:`qgs_tpu_torch.host`; rank 3, or rank 5 for the
+dynamic-T and T4 configurations) and returns the PyTorch tendency ``f(t,
+x)`` and Jacobian ``Df(t, x)`` on single states, with their batched
+versions attached as ``.batched`` and the tensor object as ``.qgtensor``.
+``create_atmo_thermo_tendencies`` builds the thermodynamic part of the
+atmospheric tendencies alone.
 """
 
 from __future__ import annotations
@@ -15,23 +18,28 @@ import torch
 
 from qgs_tpu_torch.host import (
     AtmosphericAnalyticInnerProducts, AtmosphericSymbolicInnerProducts,
+    AtmoThermoTensor, AtmoThermoTensorDynamicT, AtmoThermoTensorT4,
     GroundAnalyticInnerProducts, GroundSymbolicInnerProducts,
     OceanicAnalyticInnerProducts, OceanicSymbolicInnerProducts, QgsTensor,
+    QgsTensorDynamicT, QgsTensorT4,
 )
 from qgs_tpu_torch.ops.contraction import make_tendency_fns, single_state
 
 
-def _check_supported(params):
-    if params.T4 or params.dynamic_T:
-        raise NotImplementedError(
-            "T4 and dynamic-T configurations (rank-5 tensors) are not ported "
-            "yet: ROADMAP queue 1, item 8")
-
-
 def _build_inner_products(params):
     """Pick analytic or symbolic inner products from the configuration
-    (same choice as ``qgs_tpu.models.tendencies._build_inner_products``)."""
-    _check_supported(params)
+    (same choice as ``qgs_tpu.models.tendencies._build_inner_products``).
+    A dynamic-T or T4 configuration needs symbolic inner products: the
+    analytic ones have no quartic coefficients."""
+    if params.T4 or params.dynamic_T:
+        blocks = [("atmospheric", params.ablocks),
+                  ("oceanic", params.oblocks), ("ground", params.gblocks)]
+        used = [name for name, b in blocks if b is not None]
+        if used:
+            raise ValueError(
+                "dynamic_T/T4 configurations need symbolic inner products: "
+                f"set the {'/'.join(used)} modes with mode='symbolic' "
+                "(analytic inner products have no quartic coefficients)")
     aip = oip = gip = None
     if params.ablocks is not None:
         aip = AtmosphericAnalyticInnerProducts(params)
@@ -58,7 +66,11 @@ def _build_inner_products(params):
 
 
 def build_tensor(params, aip, oip, gip):
-    _check_supported(params)
+    """The configuration's tendency tensor: T4, dynamic-T or rank 3."""
+    if params.T4:
+        return QgsTensorT4(params, aip, oip, gip)
+    if params.dynamic_T:
+        return QgsTensorDynamicT(params, aip, oip, gip)
     return QgsTensor(params, aip, oip, gip)
 
 
@@ -91,3 +103,27 @@ def create_tendencies(params, return_inner_products=False,
     if return_qgtensor:
         ret.append(agotensor)
     return ret
+
+
+def create_atmo_thermo_tendencies(params, return_atmo_thermo_tensor=False,
+                                  mode="auto", dtype=torch.float64,
+                                  device="cuda"):
+    """The thermodynamic-only atmospheric tendencies ``f_thermo(t, x)`` on
+    single states, the batched version as ``.batched`` (the diagnostics
+    take the vertical velocity omega from ``f - f_thermo``), on ``device``
+    in ``dtype`` as :func:`create_tendencies`.  With
+    ``return_atmo_thermo_tensor``, ``[f_thermo, tensor]``."""
+    aip, oip, gip = _build_inner_products(params)
+    if params.T4:
+        tensor = AtmoThermoTensorT4(params, aip, oip, gip)
+    elif params.dynamic_T:
+        tensor = AtmoThermoTensorDynamicT(params, aip, oip, gip)
+    else:
+        tensor = AtmoThermoTensor(params, aip, oip, gip)
+
+    f_batched, _ = make_tendency_fns(tensor.tensor, tensor.jacobian_tensor,
+                                     mode=mode, dtype=dtype, device=device)
+    f = single_state(f_batched)
+    if return_atmo_thermo_tensor:
+        return [f, tensor]
+    return f

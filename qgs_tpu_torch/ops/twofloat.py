@@ -13,22 +13,26 @@ about 48 bits of mantissa.
   contracts nothing into an FMA, so the JAX package's optimization barriers
   (and ``no_barriers``) have no counterpart here.
 * :class:`DfTendency` is the double-float tendency contraction over the
-  row-padded layout of :mod:`qgs_tpu_torch.ops.contraction`; every op is
-  renormalized (the JAX package's ``accumulate='strict'``).
+  layout of :mod:`qgs_tpu_torch.ops.contraction` (row-padded for rank 3,
+  two-level for rank 5); every op is renormalized (the JAX package's
+  ``accumulate='strict'``).
 * :func:`make_df_rk4_step_dynamic` and :func:`make_df_rk_step_dynamic` are
   the double-float RK steps ``step(y, tt, dt) -> y_new`` over a function
   ``f(y_hi, y_lo) -> (f_hi, f_lo)``.  The fused kernel ``csrc/rk4_df_fused.cu``
   computes the RK4 one (:mod:`qgs_tpu_torch.ops.fused_df_rk4`).
   :func:`make_df_rk4_step` is the RK4 step with ``dt`` baked in.
 * :class:`DfTangent` is the double-float tangent contraction on the layout
-  of :class:`~qgs_tpu_torch.ops.contraction.Tangent`, and
+  of :class:`~qgs_tpu_torch.ops.contraction.Tangent` (for rank 5, the
+  double-float coefficient, then the product with the tangent block), and
   :func:`make_df_tgls_rk4_step_dynamic`, :func:`make_df_tgls_rk4_step` and
   :func:`make_df_tgls_rk_step_dynamic` are the coupled (trajectory,
   tangent) steps.  The baked RK4 forms split ``dt / 2`` and ``dt / 6`` on
   the host, which are not the bits of the dynamic form's exact half and
   ``df_div_scalar(dt, 6)``.
 
-Rank-5 tensors are not ported yet (ROADMAP queue 1, item 8).
+The JAX package's pair factoring of the quartic entries (``factor_pairs``)
+is not ported: a rank-5 slot is the chain of ``df_mul`` over its trailing
+gathers.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from qgs_tpu_torch.ops.contraction import (_check_rank3, row_padded,
-                                           tangent_layout)
+from qgs_tpu_torch.ops.contraction import (jacobian_layout, padded_layout,
+                                           tangent_layout, with_zero)
 
 
 # ---------------------------------------------------------------------------
@@ -158,57 +162,88 @@ def split_values(vals):
     return vhi, (vals - vhi.astype(np.float64)).astype(np.float32)
 
 
-class DfTendency(nn.Module):
-    """Double-float tendency ``f(y_hi, y_lo) -> (f_hi, f_lo)``: (B, n)
-    pairs in and out, ``f_i = sum_e v_e xx[j_e] xx[k_e]`` over ``xx = [1,
-    y]`` (the dummy's lo is 0), of a rank-3 tensor given as COO arrays
-    ``coords`` (3, nnz), ``data`` (nnz,) and ``shape`` (n1, n1, n1), such as
-    the JAX package's ``QgsTensor.tensor``.
+class _DfContraction(nn.Module):
+    """Double-float ``prod_a xx[idx_a] * v`` summed over the slot axis by
+    :func:`df_reduce_last`, and for a two-level layout the chunk sums of
+    each row summed the same way and placed at the outputs: a (B, n1) pair
+    -> a (B, *out_shape) pair."""
 
-    Each output row's entries are padded to a common count R (value 0,
-    index 0); every slot is ``(v * xx[j]) * xx[k]`` in double-float, and the
-    slots are summed by :func:`df_reduce_last`.  The host arrays stay on the
-    module (``coords``, ``data``, ``shape``) for the fused kernel to build
-    its own layout from."""
-
-    def __init__(self, coords, data, shape, device="cuda"):
+    def __init__(self, layout, out_shape, device):
         super().__init__()
-        _check_rank3(shape)
-        coords = np.asarray(coords, np.int64)
-        data = np.asarray(data, np.float64)
-        n = int(shape[0]) - 1
-        keep = coords[0] != 0            # output row 0 is the dummy: dropped
-        vals, (idx_j, idx_k) = row_padded(coords[0][keep] - 1, n,
-                                          [coords[1][keep], coords[2][keep]],
-                                          data[keep])
+        vals, idxs, chunks, perm = layout
         vhi, vlo = split_values(vals)
-        for name, a in (("vhi", vhi), ("vlo", vlo), ("idx_j", idx_j),
-                        ("idx_k", idx_k)):
+        bufs = {"vhi": vhi, "vlo": vlo}
+        bufs.update((f"idx{k}", idx) for k, idx in enumerate(idxs))
+        for name, a in bufs.items():
             self.register_buffer(name, torch.as_tensor(a, device=device))
-        self.coords, self.data = coords, data
-        self.shape = tuple(int(s) for s in shape)
+        self.n_idx = len(idxs)
+        self.two_level = chunks is not None
+        if self.two_level:
+            self.register_buffer("chunks", torch.as_tensor(chunks,
+                                                           device=device))
+            self.register_buffer("perm", torch.as_tensor(perm, device=device))
+        self.out_shape = tuple(out_shape)
 
     @property
     def device(self):
         return self.vhi.device
 
+    def contract(self, xx):
+        t = (self.vhi, self.vlo)
+        for a in range(self.n_idx):
+            idx = getattr(self, f"idx{a}")
+            t = df_mul(t, (xx[0][:, idx], xx[1][:, idx]))       # (B, ..., R)
+        out = df_reduce_last(t)
+        if self.two_level:
+            out = df_reduce_last(tuple(with_zero(p)[:, self.chunks]
+                                       for p in out))
+            out = tuple(with_zero(p)[:, self.perm] for p in out)
+        B = xx[0].shape[0]
+        return tuple(p.reshape((B,) + self.out_shape) for p in out)
+
+
+class DfTendency(_DfContraction):
+    """Double-float tendency ``f(y_hi, y_lo) -> (f_hi, f_lo)``: (B, n)
+    pairs in and out, ``f_i = sum_e v_e prod_{a>=1} xx[coords[a, e]]`` over
+    ``xx = [1, y]`` (the dummy's lo is 0), of a tensor of rank 3 or 5 given
+    as COO arrays ``coords`` (rank, nnz), ``data`` (nnz,) and ``shape``
+    (n1,) * rank, such as the JAX package's ``QgsTensor.tensor``.
+
+    On the layout of :func:`~qgs_tpu_torch.ops.contraction.padded_layout`
+    every slot is ``(((v * xx[j]) * xx[k]) ...)`` in double-float (a gather
+    at index 0 is the exact (1, 0), which ``df_mul`` leaves unchanged), and
+    the slots are summed by :func:`df_reduce_last`.  The host arrays stay
+    on the module (``coords``, ``data``, ``shape``) for the fused kernel
+    (rank 3) to build its own layout from."""
+
+    def __init__(self, coords, data, shape, device="cuda"):
+        coords = np.asarray(coords, np.int64)
+        data = np.asarray(data, np.float64)
+        n = int(shape[0]) - 1
+        keep = coords[0] != 0            # output row 0 is the dummy: dropped
+        layout = padded_layout(coords[0][keep] - 1, n,
+                               [c[keep] for c in coords[1:]], data[keep],
+                               len(shape))
+        super().__init__(layout, (n,), device)
+        self.coords, self.data = coords, data
+        self.shape = tuple(int(s) for s in shape)
+
     def forward(self, y_hi, y_lo):
-        xx_hi, xx_lo = pad_dummy((y_hi, y_lo))
-        xj = (xx_hi[:, self.idx_j], xx_lo[:, self.idx_j])    # (B, n, R)
-        xk = (xx_hi[:, self.idx_k], xx_lo[:, self.idx_k])
-        t = df_mul(df_mul((self.vhi, self.vlo), xj), xk)
-        return df_reduce_last(t)
+        return self.contract(pad_dummy((y_hi, y_lo)))
 
 
 class DfTangent(nn.Module):
     """Double-float tangent contraction ``hom(xx, dm) -> df (B, n, n_tg)``
     over the dummy-padded state pair ``xx`` (B, n1) and the tangent block
-    pair ``dm`` (B, n, n_tg), of a rank-3 Jacobian tensor given as COO
-    arrays: the counterpart of the JAX package's
+    pair ``dm`` (B, n, n_tg), of a Jacobian tensor of rank 3 or 5 given as
+    COO arrays: the counterpart of the JAX package's
     ``make_df_tangent_contraction``, on the layout of
-    :class:`~qgs_tpu_torch.ops.contraction.Tangent`.  Each slot is
+    :class:`~qgs_tpu_torch.ops.contraction.Tangent`.  Rank 3: each slot is
     ``df_mul(df_mul(v, xx[k]), dm[m])`` and the slots of an output row are
-    summed by :func:`df_reduce_last`.
+    summed by :func:`df_reduce_last`.  Rank 5: the double-float coefficient
+    ``C[b, i, m]`` (``.coef``, the transformed Jacobian on its two-level
+    layout), then ``df_mul(C[b, i, m], dm[b, m, t])`` summed over ``m`` by
+    :func:`df_reduce_last`.
 
     The module keeps the untransformed host arrays and its ``adjoint`` and
     ``inverse`` flags; :meth:`with_transform` composes a further
@@ -217,19 +252,26 @@ class DfTangent(nn.Module):
     def __init__(self, coords, data, shape, adjoint=False, inverse=False,
                  device="cuda"):
         super().__init__()
+        self.coords, self.data = coords, data
+        self.shape = tuple(int(s) for s in shape)
+        self.adjoint, self.inverse = adjoint, inverse
+        self.coef = None
+        if len(shape) != 3:
+            n = self.shape[0] - 1
+            self.coef = _DfContraction(
+                jacobian_layout(coords, data, shape, adjoint, inverse),
+                (n, n), device)
+            return
         vals, idx_m, idx_k = tangent_layout(coords, data, shape, adjoint,
                                             inverse)
         vhi, vlo = split_values(vals)
         for name, a in (("vhi", vhi), ("vlo", vlo), ("idx_m", idx_m),
                         ("idx_k", idx_k)):
             self.register_buffer(name, torch.as_tensor(a, device=device))
-        self.coords, self.data = coords, data
-        self.shape = tuple(int(s) for s in shape)
-        self.adjoint, self.inverse = adjoint, inverse
 
     @property
     def device(self):
-        return self.vhi.device
+        return (self.vhi if self.coef is None else self.coef.vhi).device
 
     def with_transform(self, adjoint=False, inverse=False):
         """This contraction, further transposed for ``adjoint`` and negated
@@ -241,6 +283,11 @@ class DfTangent(nn.Module):
                          self.device)
 
     def forward(self, xx, dm):
+        if self.coef is not None:
+            c = self.coef.contract(xx)                          # (B, n, n)
+            t = df_mul(tuple(p[..., None] for p in c),
+                       tuple(p[:, None] for p in dm))           # (B, n, n, t)
+            return df_reduce_last(tuple(p.transpose(-1, -2) for p in t))
         xk = (xx[0][:, self.idx_k], xx[1][:, self.idx_k])      # (B, n, R)
         coef = df_mul((self.vhi, self.vlo), xk)
         dmg = (dm[0][:, self.idx_m], dm[1][:, self.idx_m])     # (B, n, R, t)

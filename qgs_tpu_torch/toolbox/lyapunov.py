@@ -14,7 +14,8 @@ intersection), over a batch of trajectories at once.
 * ``precision='twofloat'`` propagates the windows in double-float
   (:func:`make_window_step_df`) and orthonormalizes in native float64.
 * The forward-trajectory pass of the forward vectors is one launch of the
-  fused RK4 kernel on a CUDA state (:func:`forward_boundary_states`).
+  fused RK4 kernel on a CUDA state of a rank-3 model
+  (:func:`forward_boundary_states`).
 * Device: every function runs on ``f``'s ``.device``, else the device of a
   tensor ``ic``, else ``device`` (default ``"cuda"``), and returns tensors
   there; without a card the default raises.
@@ -31,12 +32,12 @@ import torch
 
 from qgs_tpu_torch.integrators.integrator import same_model_jacobian
 from qgs_tpu_torch.integrators.rk import (
-    _is_rk4, as_state, make_rk_step, make_tgls_step, merge_tableau,
-    rk4_tableau,
+    _is_rk4, as_state, fused_route, make_rk_step, make_tgls_step,
+    merge_tableau, rk4_tableau,
 )
 from qgs_tpu_torch.ops import fused_df_rk4 as _fused_df
 from qgs_tpu_torch.ops import fused_rk4 as _fused
-from qgs_tpu_torch.ops.contraction import Tendency, make_bucketed_tangent
+from qgs_tpu_torch.ops.contraction import make_bucketed_tangent
 from qgs_tpu_torch.ops.twofloat import (
     DfTangent, DfTendency, _check_explicit_tableau, df_from_f64, df_to_f64,
     make_df_rk4_step, make_df_rk_step_dynamic, make_df_tgls_rk4_step,
@@ -287,17 +288,18 @@ def forward_boundary_states(f, y, n_windows, n_sub, mdt, tableau=None):
     integration by ``n_windows * n_sub`` steps of ``mdt``: a (n_windows + 1,
     B, n) tensor, a pair of them for a double-float state ``y``.
 
-    On a CUDA state, classical RK4 of a
+    On a CUDA state, classical RK4 of a rank-3
     :class:`~qgs_tpu_torch.ops.contraction.Tendency` is one launch of the
-    fused RK4 kernel and of a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`
-    one launch of the fused double-float kernel, a record every ``n_sub``
-    steps.  Every other case is the plain step loop (the double-float RK4
-    step with ``mdt`` baked in, as the JAX package's forward pass)."""
+    fused RK4 kernel and of a rank-3
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` one launch of the fused
+    double-float kernel, a record every ``n_sub`` steps
+    (:func:`~qgs_tpu_torch.integrators.rk.fused_route`).  Every other case
+    is the plain step loop (the double-float RK4 step with ``mdt`` baked
+    in, as the JAX package's forward pass)."""
     df_mode = isinstance(y, tuple)
     rk4 = tableau is None or _is_rk4(*tableau)
     y0 = y[0] if df_mode else y
-    if rk4 and y0.is_cuda and isinstance(f, DfTendency if df_mode
-                                         else Tendency):
+    if fused_route(f, y, tableau if tableau is not None else rk4_tableau()):
         dts = torch.full((n_windows * n_sub,), float(mdt),
                          dtype=torch.float64, device=y0.device)
         if df_mode:

@@ -103,12 +103,21 @@ def test_row_padded_layout():
 
 
 def test_rank5_tensor_raises_not_implemented():
-    t5 = COO(np.array([[1], [1], [1], [1], [1]]), np.array([1.]), (3,) * 5)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_tendency_fns(t5, t5, device="cpu")
+    """A rank-5 tensor no longer raises: the one-entry quartic tendency
+    ``f_1 = 2 x_1^2 x_2^2`` and its Jacobian tensor evaluate exactly."""
+    t5 = COO(np.array([[1], [1], [1], [2], [2]]), np.array([2.]), (3,) * 5)
+    j5 = COO(np.array([[1, 1], [1, 2], [1, 1], [2, 1], [2, 2]]),
+             np.array([4., 4.]), (3,) * 5)
+    f, jac = make_tendency_fns(t5, j5, device="cpu")
+    x = torch.tensor([[3., 5.]], dtype=torch.float64)
+    assert f(0., x).tolist() == [[2. * 9 * 25, 0.]]
+    assert jac(0., x).tolist() == [[[4. * 3 * 25, 4. * 9 * 5], [0., 0.]]]
 
 
 def test_t4_configuration_raises_not_implemented():
+    """A T4 configuration no longer raises ``NotImplementedError``; with
+    analytic inner products it raises the reference's ``ValueError``."""
     pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8}, T4=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    pars.set_atmospheric_channel_fourier_modes(2, 2)
+    with pytest.raises(ValueError, match="need symbolic inner products"):
         create_tendencies(pars, device="cpu")

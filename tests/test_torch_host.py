@@ -21,7 +21,8 @@ from qgs_tpu.inner_products.symbolic import (
     OceanicSymbolicInnerProducts as JaxOceanSymbolic,
 )
 from qgs_tpu.params.params import QgParams as JaxQgParams
-from qgs_tpu.tensors.qgtensor import QgsTensor as JaxQgsTensor
+from qgs_tpu.tensors import atmo_thermo as jax_atmo_thermo
+from qgs_tpu.tensors import qgtensor as jax_qgtensor
 from qgs_tpu_torch import host
 
 
@@ -82,16 +83,37 @@ def symbolic(QgParams):
     return pars
 
 
+def _quartic(QgParams, **scheme):
+    """The symbolic 2x2 + 2x4 configuration of ``tests/test_t4.py:20-23``
+    and ``tests/test_symbolic_ip.py:71`` with a rank-5 radiation scheme
+    (ndim 38: the 0-th order temperatures join the state)."""
+    pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8}, **scheme)
+    pars.set_params({'kd': 0.04, 'kdp': 0.04, 'n': 1.5})
+    pars.set_atmospheric_channel_fourier_modes(2, 2, mode='symbolic')
+    pars.set_oceanic_basin_fourier_modes(2, 4, mode='symbolic')
+    return pars
+
+
+def t4(QgParams):
+    """The full quartic T^4 scheme of ``tests/test_t4.py:18-27``."""
+    return _quartic(QgParams, T4=True)
+
+
+def dynamic_t(QgParams):
+    """The dynamic-T scheme of ``tests/test_symbolic_ip.py:71``."""
+    return _quartic(QgParams, dynamic_T=True)
+
+
 def both_params(settings):
     """``(JAX package's QgParams, port's QgParams)`` from one settings
     function."""
     return settings(JaxQgParams), settings(host.QgParams)
 
 
-def _tensor(pars, atm, ocean, ground_ip, QgsTensor, symbolic_ips):
-    """The configuration's tensor, its inner products built as
-    ``create_tendencies`` of either package builds them (the symbolic ones
-    by quadrature, as ``tests/test_symbolic_ip.py`` does)."""
+def _inner_products(pars, atm, ocean, ground_ip, symbolic_ips):
+    """The configuration's inner products, built as ``create_tendencies``
+    of either package builds them (the symbolic ones by quadrature, as
+    ``tests/test_symbolic_ip.py`` does)."""
     kw = dict(quadrature=True) if symbolic_ips else {}
     aip = atm(pars, **kw)
     oip = ocean(pars, **kw) if pars.oblocks is not None or symbolic_ips \
@@ -101,7 +123,13 @@ def _tensor(pars, atm, ocean, ground_ip, QgsTensor, symbolic_ips):
         aip.connect_to_ocean(oip)
     elif gip is not None:
         aip.connect_to_ground(gip)
-    return QgsTensor(pars, aip, oip, gip)
+    return aip, oip, gip
+
+
+def _tensor(pars, atm, ocean, ground_ip, QgsTensor, symbolic_ips):
+    """The configuration's tensor of class ``QgsTensor``."""
+    return QgsTensor(pars, *_inner_products(pars, atm, ocean, ground_ip,
+                                            symbolic_ips))
 
 
 JAX_IPS = {False: (JaxAtmAnalytic, JaxOceanAnalytic, JaxGroundAnalytic),
@@ -113,7 +141,11 @@ PORT_IPS = {False: (host.AtmosphericAnalyticInnerProducts,
                    host.OceanicSymbolicInnerProducts, None)}
 
 CONFIGS = {"maooam": (maooam, 36), "rp": (rp, 20), "tlad": (tlad, 20),
-           "ground": (ground, 30), "symbolic": (symbolic, 36)}
+           "ground": (ground, 30), "symbolic": (symbolic, 36),
+           "t4": (t4, 38), "dynT": (dynamic_t, 38)}
+SYMBOLIC = ("symbolic", "t4", "dynT")
+# each configuration's tensor class in both packages, and its rank
+TENSORS = {"t4": ("QgsTensorT4", 5), "dynT": ("QgsTensorDynamicT", 5)}
 
 # derived parameters the tensor reads (qgs_tpu/tensors/qgtensor.py)
 DERIVED = ("ndim", "number_of_variables", "variables_range", "G", "Cpa",
@@ -146,19 +178,20 @@ def _value(pars, path):
 @pytest.fixture(scope="module", params=list(CONFIGS))
 def tensors(request):
     settings, ndim = CONFIGS[request.param]
-    sym = request.param == "symbolic"
+    sym = request.param in SYMBOLIC
+    cls, rank = TENSORS.get(request.param, ("QgsTensor", 3))
     jax_pars, port_pars = both_params(settings)
-    t_jax = _tensor(jax_pars, *JAX_IPS[sym], JaxQgsTensor, sym)
-    t_port = _tensor(port_pars, *PORT_IPS[sym], host.QgsTensor, sym)
-    return ndim, jax_pars, port_pars, t_jax, t_port
+    t_jax = _tensor(jax_pars, *JAX_IPS[sym], getattr(jax_qgtensor, cls), sym)
+    t_port = _tensor(port_pars, *PORT_IPS[sym], getattr(host, cls), sym)
+    return ndim, rank, jax_pars, port_pars, t_jax, t_port
 
 
 def test_tendency_tensor_equal_bit_for_bit(tensors):
-    ndim, _, _, t_jax, t_port = tensors
+    ndim, rank, _, _, t_jax, t_port = tensors
     for name in ("tensor", "jacobian_tensor"):
         a, b = getattr(t_jax, name), getattr(t_port, name)
         assert type(b) is host.COO
-        assert tuple(b.shape) == tuple(a.shape) == (ndim + 1,) * 3
+        assert tuple(b.shape) == tuple(a.shape) == (ndim + 1,) * rank
         assert b.nnz == a.nnz > 0
         assert np.array_equal(b.coords, a.coords)
         assert b.data.dtype == a.data.dtype
@@ -166,7 +199,7 @@ def test_tendency_tensor_equal_bit_for_bit(tensors):
 
 
 def test_ndim_and_derived_parameters_equal(tensors):
-    ndim, jax_pars, port_pars, _, _ = tensors
+    ndim, _, jax_pars, port_pars, _, _ = tensors
     assert port_pars.ndim == jax_pars.ndim == ndim
     for path in DERIVED:
         a, b = _value(jax_pars, path), _value(port_pars, path)
@@ -174,6 +207,30 @@ def test_ndim_and_derived_parameters_equal(tensors):
             assert a is None and b is None, path
         else:
             assert np.array_equal(np.asarray(a), np.asarray(b)), path
+
+
+@pytest.mark.parametrize("config, cls", [
+    ("maooam", "AtmoThermoTensor"), ("dynT", "AtmoThermoTensorDynamicT"),
+    ("t4", "AtmoThermoTensorT4")])
+def test_atmo_thermo_tensor_equal_bit_for_bit(config, cls):
+    """The thermodynamic-only atmospheric tensors (rank 3 on MAOOAM, rank 5
+    on the dynamic-T and T4 configurations) of the port's copy of
+    ``tensors/atmo_thermo.py`` against the JAX package's."""
+    settings, ndim = CONFIGS[config]
+    sym = config in SYMBOLIC
+    jax_pars, port_pars = both_params(settings)
+    t_jax = getattr(jax_atmo_thermo, cls)(
+        jax_pars, *_inner_products(jax_pars, *JAX_IPS[sym], sym))
+    t_port = getattr(host, cls)(
+        port_pars, *_inner_products(port_pars, *PORT_IPS[sym], sym))
+    for name in ("tensor", "jacobian_tensor"):
+        a, b = getattr(t_jax, name), getattr(t_port, name)
+        assert type(b) is host.COO
+        assert tuple(b.shape) == tuple(a.shape)
+        assert len(b.shape) == (3 if config == "maooam" else 5)
+        assert b.nnz == a.nnz > 0
+        assert np.array_equal(b.coords, a.coords)
+        assert np.array_equal(b.data, a.data)
 
 
 def test_port_host_classes_are_its_own():

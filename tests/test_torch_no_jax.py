@@ -1,9 +1,10 @@
 """The port stands on its own: a subprocess with ``jax`` and the JAX
 package ``qgs_tpu`` blocked imports ``qgs_tpu_torch``, builds MAOOAM,
 integrates 10 steps on the CPU in float64 and in twofloat, 3 steps of the
-tangent-linear system and 2 Benettin windows; no source file
-of the port imports either; and the port builds on the CUDA card unless
-asked for the CPU."""
+tangent-linear system and 2 Benettin windows, then runs the atmospheric
+thermodynamic tendencies, ``QgsModel``, ``TrajectoriesStatistics`` and a
+rank-5 (dynamic-T) model; no source file of the port imports either; and
+the port builds on the CUDA card unless asked for the CPU."""
 
 import os
 import pathlib
@@ -65,6 +66,28 @@ t, y, exps, vecs = compute_backward_lyapunovs(
     f.batched, Df.batched, 0., 0.1, 0.2, 0.1, 0.1, traj[:, :, -1],
     tensors=(qgt.tensor, qgt.jacobian_tensor))
 assert tuple(vecs.shape) == (4, 36, 36, 2) and bool(exps.isfinite().all())
+
+from qgs_tpu_torch.integrators.statistics import TrajectoriesStatistics
+from qgs_tpu_torch.models.model import QgsModel
+from qgs_tpu_torch.models.tendencies import create_atmo_thermo_tendencies
+x = traj[:, :, -1]
+assert tuple(create_atmo_thermo_tendencies(pars, device="cpu").batched(
+    0., x).shape) == (4, 36)
+model = QgsModel(pars, device="cpu")
+assert bool((model.f.batched(0., x) - f.batched(0., x)).abs().max() == 0)
+st = TrajectoriesStatistics()
+st.set_integrator(integ)
+st.set_func_list([lambda tr: tr[:, :, -1]])
+assert tuple(st.compute_stats(0., 0.2, 0.1, ic=x, num=2).shape) == (1, 36)
+dyn = QgParams({'rr': 287., 'sb': 5.6e-8}, dynamic_T=True)
+dyn.set_params({'kd': 0.04, 'kdp': 0.04, 'n': 1.5})
+dyn.set_atmospheric_channel_fourier_modes(2, 2, mode='symbolic')
+dyn.set_oceanic_basin_fourier_modes(2, 4, mode='symbolic')
+f5, Df5 = create_tendencies(dyn, device="cpu")
+integ5 = RungeKuttaIntegrator()
+integ5.set_func(f5)
+integ5.integrate(0., 0.3, 0.1, ic=np.full((2, 38), 0.05), write_steps=0)
+assert tuple(integ5.get_trajectories()[1].shape) == (2, 38)
 assert sys.modules["jax"] is None and sys.modules["qgs_tpu"] is None
 print("OK", sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "qgs_tpu")))
