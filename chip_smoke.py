@@ -40,13 +40,26 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    ``number_of_dimensions``; times and peak memory of the rank-5 TGLS step
    (B = 256) and of a T4 Benettin window (B = 16); then ``QgsModel`` of
    MAOOAM saved and loaded, integrated (one K1 launch) and fed to
-   ``TrajectoriesStatistics``.
+   ``TrajectoriesStatistics``;
+8. the diagnostics (``qgs_tpu_torch.diagnostics``) on the card: one MAOOAM
+   trajectory of 20,001 records (2e4 time units, one K1 launch, counted)
+   through every diagnostic that applies to MAOOAM at the default 100 x 100
+   grid, each timed, with its peak memory, its bound (bytes over the
+   device memory's rate) and the card against the CPU on the first 200
+   records (rtol 1e-12, atol 1e-12 x max|field|), and a dashboard (one
+   frame drawn on Agg where matplotlib is installed); the RP and ground-coupled configurations' own diagnostics
+   (orography, ground temperatures) card against CPU; then a
+   ``torch.profiler`` trace (``qgs_tpu_torch.utils.profiling.trace``) of
+   the float64 main path's call, summarised (window, device-busy share,
+   K1's share, top five device operations, the longest idle gap), and the
+   same call under ``ThroughputMeter``.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
 kernel's numbers, ``{"kernels": [...]}``, the one before that phase 6's
-numbers, ``{"tangent": {...}}``, and the one before that phase 7's,
-``{"rank5": {...}}``.  Run from the repository root:
+numbers, ``{"tangent": {...}}``, the one before that phase 7's,
+``{"rank5": {...}}``, and the one before that phase 8's,
+``{"diagnostics": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -768,6 +781,381 @@ def rank5_phase(card, dev):
     return out
 
 
+def rp_params(QgParams):
+    """The atmosphere-only channel of ``qgs_rp.py`` (ndim 20), with its
+    orography and thetas."""
+    pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.1})
+    pars.set_atmospheric_channel_fourier_modes(2, 2)
+    pars.ground_params.set_orography(0.2, 1)
+    pars.atemperature_params.set_thetas(0.2, 0)
+    return pars
+
+
+def ground_params(QgParams):
+    """Atmosphere + ground with orography and heat exchange (ndim 30)."""
+    pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8}, gtemperature_params=True)
+    pars.set_params({'kd': 0.04, 'kdp': 0.04, 'n': 1.5})
+    pars.set_atmospheric_channel_fourier_modes(2, 2)
+    pars.set_ground_channel_fourier_modes()
+    pars.ground_params.set_orography(0.2, 1)
+    return pars
+
+
+# the diagnostics of an atmosphere (every configuration), of an ocean
+# (MAOOAM) and of a ground: (module, class, extra keywords)
+ATMOSPHERE_DIAGNOSTICS = [
+    ("streamfunctions", "LowerLayerAtmosphericStreamfunctionDiagnostic", {}),
+    ("streamfunctions", "UpperLayerAtmosphericStreamfunctionDiagnostic", {}),
+    ("streamfunctions", "MiddleAtmosphericStreamfunctionDiagnostic", {}),
+    ("temperatures", "MiddleAtmosphericTemperatureAnomalyDiagnostic", {}),
+    ("temperatures", "MiddleAtmosphericTemperatureDiagnostic", {}),
+    ("temperatures", "AtmosphericTemperatureMeridionalGradientDiagnostic", {}),
+    ("temperatures",
+     "MiddleAtmosphericTemperatureMeridionalGradientDiagnostic", {}),
+    ("wind", "LowerLayerAtmosphericUWindDiagnostic", {}),
+    ("wind", "LowerLayerAtmosphericVWindDiagnostic", {}),
+    ("wind", "MiddleAtmosphericUWindDiagnostic", {}),
+    ("wind", "MiddleAtmosphericVWindDiagnostic", {}),
+    ("wind", "UpperLayerAtmosphericUWindDiagnostic", {}),
+    ("wind", "UpperLayerAtmosphericVWindDiagnostic", {}),
+    ("wind", "LowerLayerAtmosphericWindIntensityDiagnostic", {}),
+    ("wind", "MiddleAtmosphericWindIntensityDiagnostic", {}),
+    ("wind", "UpperLayerAtmosphericWindIntensityDiagnostic", {}),
+    ("wind", "MiddleLayerVerticalVelocity", {}),
+    ("vorticity", "LowerLayerAtmosphericVorticityDiagnostic", {}),
+    ("vorticity", "MiddleAtmosphericVorticityDiagnostic", {}),
+    ("vorticity", "UpperLayerAtmosphericVorticityDiagnostic", {}),
+    ("vorticity", "UpperLayerAtmosphericPotentialVorticityDiagnostic", {}),
+    ("vorticity", "LowerLayerAtmosphericPotentialVorticityDiagnostic", {}),
+    ("eddy", "MiddleAtmosphericEddyHeatFluxDiagnostic", {}),
+    ("eddy", "MiddleAtmosphericEddyHeatFluxProfileDiagnostic", {}),
+]
+OCEAN_DIAGNOSTICS = [
+    ("streamfunctions", "OceanicLayerStreamfunctionDiagnostic", {}),
+    ("temperatures", "OceanicLayerTemperatureAnomalyDiagnostic", {}),
+    ("temperatures", "OceanicLayerTemperatureDiagnostic", {}),
+    ("vorticity", "OceanicLayerVorticityDiagnostic", {}),
+]
+GROUND_DIAGNOSTICS = [
+    ("streamfunctions", "MiddleAtmosphericStreamfunctionDiagnostic", {}),
+    ("wind", "MiddleLayerVerticalVelocity", {}),
+    ("temperatures", "GroundTemperatureAnomalyDiagnostic", {}),
+    ("temperatures", "GroundTemperatureDiagnostic", {}),
+]
+TOL_DIAG = 1e-12       # card against CPU: rtol, and atol x max|CPU field|
+
+
+def held_bytes(obj, seen):
+    """Bytes of the tensors a diagnostic holds (mode grids, point matrices,
+    the buffers of its tendency modules), its nested diagnostics' included,
+    its data and cached output excluded; ``seen`` skips shared tensors."""
+    import torch
+    total = 0
+    for key, value in vars(obj).items():
+        if key in ("_data", "_diagnostic_data"):
+            continue
+        if torch.is_tensor(value):
+            tensors = [value]
+        elif isinstance(value, torch.nn.Module):
+            tensors = list(value.buffers())
+        elif hasattr(value, "_diagnostic_data"):
+            total += held_bytes(value, seen)
+            tensors = []
+        else:
+            tensors = []
+        for t in tensors:
+            if id(t) not in seen:
+                seen.add(id(t))
+                total += t.numel() * t.element_size()
+    return total
+
+
+def trace_summary(logdir):
+    """The window, device-busy share, the fused RK4 kernel's time, the
+    top five device operations and the three longest device-idle gaps of
+    the ``torch.profiler`` trace in ``logdir``."""
+    import glob
+    paths = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(paths) != 1:
+        fail(f"the trace directory holds {len(paths)} trace files")
+    with open(paths[0]) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy, spans = 0.0, []
+    for e in device:                    # the union of the device intervals
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if spans and a <= spans[-1][1]:
+            spans[-1][1] = max(spans[-1][1], b)
+        else:
+            spans.append([a, b])
+    busy = sum(b - a for a, b in spans)
+    edges = [start] + [x for s in spans for x in s] + [end]
+    gaps = sorted(((edges[i], edges[i + 1]) for i in range(0, len(edges), 2)),
+                  key=lambda g: g[0] - g[1])
+
+    def gap(g0, g1):
+        """The gap, the host op that began last before it, and the one
+        that overlaps it most."""
+        before = [e for e in host if e["ts"] <= g0]
+        inside = [(min(e["ts"] + e["dur"], g1) - max(e["ts"], g0), e["name"])
+                  for e in host]
+        return {"ms": (g1 - g0) / 1e3, "at_ms": (g0 - start) / 1e3,
+                "host_op_before": max(before, key=lambda e: e["ts"])["name"]
+                if before else None,
+                "host_op_during": max(inside)[1]
+                if inside and max(inside)[0] > 0 else None}
+    totals = {}
+    for e in device:
+        name = e["name"][:80]
+        ms, count = totals.get(name, (0.0, 0))
+        totals[name] = (ms + e["dur"] / 1e3, count + 1)
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:5]
+    k1 = sum(e["dur"] for e in device if "rk4_fused_kernel" in e["name"])
+    window = end - start
+    return {"window_ms": window / 1e3, "device_events": len(device),
+            "busy_share": busy / window, "rk4_fused_ms": k1 / 1e3,
+            "rk4_fused_share": k1 / window,
+            "top5_device_ops": [{"name": k, "ms": v[0], "count": v[1]}
+                                for k, v in top],
+            "idle_ms": (window - busy) / 1e3,
+            "longest_idle_gaps": [gap(*g) for g in gaps[:3]]}
+
+
+def diagnostics_phase(f, ic_main, card, dev):
+    """8. The diagnostics on the card: (a) every diagnostic of MAOOAM on a
+    20,001-record trajectory of one K1 launch, at the default 100 x 100
+    grid, timed, its peak memory and bound, card against CPU on the first
+    200 records, and a dashboard drawn on Agg; (b) RP and the ground-coupled
+    configuration's own diagnostics, card against CPU; (c) a profiler
+    trace and a throughput meter of the float64 main path's call.  Checks
+    ``fail`` the run.  Returns the numbers."""
+    import torch
+    from qgs_tpu_torch.diagnostics import (eddy, multi, streamfunctions,
+                                           temperatures, variables,
+                                           vorticity, wind)
+    from qgs_tpu_torch.host import QgParams
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+    from qgs_tpu_torch.integrators.rk import time_grid
+    from qgs_tpu_torch.models.tendencies import create_tendencies
+    from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+    from qgs_tpu_torch.utils.profiling import ThroughputMeter, trace
+
+    modules = {"streamfunctions": streamfunctions,
+               "temperatures": temperatures, "wind": wind,
+               "vorticity": vorticity, "eddy": eddy, "variables": variables}
+    start = time.perf_counter()
+    out = {"card": card}
+
+    def counts():
+        return {"rk4_fused": fused_rk4.launches,
+                "rk4_df_fused": fused_df_rk4.launches}
+
+    def card_vs_cpu(label, gpu, cpu, t, traj):
+        """``gpu`` and ``cpu`` (the same class on each device) on one
+        trajectory; returns the largest error over max|CPU field|."""
+        got = gpu(t, traj)
+        ref = cpu(t, traj.cpu())
+        if got.device.type != "cuda" or tuple(got.shape) != tuple(ref.shape):
+            fail(f"{label}: {tuple(got.shape)} on {got.device}")
+        got = got.cpu()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        if not (torch.isfinite(got).all() and scale > 0 and torch.allclose(
+                got, ref, rtol=TOL_DIAG, atol=TOL_DIAG * scale)):
+            fail(f"{label}: card against CPU {err:.3e} (max|field| "
+                 f"{scale:.3e})")
+        return err / scale
+
+    # -- a) MAOOAM: one trajectory of 20,001 records, one K1 launch ---------
+    pars = maooam_params(QgParams)
+    n = pars.ndim
+    ic = np.random.default_rng(8).random(n) * 0.01
+    integ = RungeKuttaIntegrator()
+    integ.set_func(f)
+    fused_rk4.launches = fused_df_rk4.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    integ.integrate(0., 2e4, 0.1, ic=ic, write_steps=10)
+    t, traj = integ.get_trajectories()
+    torch.cuda.synchronize()
+    out["integrate_s"] = s = time.perf_counter() - t0
+    nt = len(t)
+    print(f"[8] MAOOAM integrate(0, 2e4, 0.1, write_steps=10), one "
+          f"trajectory: {s:.3f} s, {nt} records; {card}", flush=True)
+    if (tuple(traj.shape) != (n, 20001) or nt != 20001
+            or traj.device.type != "cuda" or not torch.isfinite(traj).all()):
+        fail(f"diagnosed trajectory {tuple(traj.shape)} on {traj.device}")
+    dts = torch.as_tensor(np.diff(time_grid(0., 100., 0.1)), device=dev)
+    _, recs = fused_rk4.fused_rk4_reference(f.batched, torch.as_tensor(
+        ic, device=dev)[None], dts, 10)
+    out["trajectory_vs_plain"] = check_close(
+        "diagnosed trajectory, first 101 records vs plain", traj[:, 1:101],
+        recs[:, 0].T, TOL64)
+
+    catalog = ATMOSPHERE_DIAGNOSTICS + OCEAN_DIAGNOSTICS + [
+        ("variables", "VariablesDiagnostic", {}),
+        ("variables", "GeopotentialHeightDifferenceDiagnostic", {})]
+    vr = pars.variables_range
+    scalars = {"VariablesDiagnostic": [0, vr[0], vr[1], vr[2], n - 1],
+               "GeopotentialHeightDifferenceDiagnostic": [
+                   ((np.pi / 1.5, np.pi / 4), (np.pi / 1.5, 3 * np.pi / 4))]}
+    t200, traj200 = t[:200], traj[:, :200]
+    out["each"] = {}
+    for module, name, kwargs in catalog:
+        cls = getattr(modules[module], name)
+
+        def build(device):
+            if name in scalars:
+                return cls(scalars[name], pars, device=device)
+            return cls(pars, **kwargs, device=device)
+        t0 = time.perf_counter()
+        d = build(dev)
+        setup_s = time.perf_counter() - t0
+        # the peak on the first call, before any (inner) output is cached
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        field = d(t, traj)
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if field.device.type != "cuda" or not torch.isfinite(field).all():
+            fail(f"{name}: output on {field.device} or not finite")
+        records = field.shape[-1] if name in scalars else field.shape[0]
+        if records != nt:
+            fail(f"{name}: {records} records, expected {nt}")
+        n_bytes = (field.numel() * 8 + traj.numel() * 8
+                   + held_bytes(d, set()))
+        b_ms, b_by = n_bytes / PEAK_BYTES * 1e3, "bytes"
+        del field
+        ms = best_ms(lambda: d(t, traj))
+        err = card_vs_cpu(name, d, build("cpu"), t200, traj200)
+        out["each"][name] = {"ms": ms, "setup_s": setup_s,
+                             "peak_mb": peak_mb, "bound_ms": b_ms,
+                             "bound_by": b_by, "card_vs_cpu": err}
+        if name == "MiddleLayerVerticalVelocity":
+            # omega's own device work before its field: the two tendency
+            # evaluations over the whole trajectory
+            out["each"][name]["set_data_ms"] = sd = best_ms(
+                lambda: d.set_data(t, traj))
+            print(f"[8] {name}: set_data (f and f_thermo on ({nt}, {n})) "
+                  f"{sd:.3f} ms; {card}", flush=True)
+        print(f"[8] {name}: {ms:.3f} ms at {nt} records (bound {b_ms:.3f} "
+              f"ms, {b_by}; share {b_ms / ms:.3f}), peak {peak_mb:.1f} MB "
+              f"above the {base / 2**20:.1f} MB before it, grid set-up "
+              f"{setup_s:.3f} s, card vs CPU (200 records) {err:.3e} of "
+              f"max|field|; {card}", flush=True)
+        del d
+
+    # a dashboard: four fields of one MultiDiagnostic, and one frame of it
+    # drawn on Agg where matplotlib is installed (else the frame's host
+    # copies alone, which is what a drawn frame moves off the card)
+    dash = multi.MultiDiagnostic(2, 2)
+    for diag in (streamfunctions.MiddleAtmosphericStreamfunctionDiagnostic,
+                 temperatures.MiddleAtmosphericTemperatureDiagnostic,
+                 streamfunctions.OceanicLayerStreamfunctionDiagnostic,
+                 temperatures.OceanicLayerTemperatureDiagnostic):
+        dash.add_diagnostic(diag(pars))
+    ms = best_ms(lambda: dash(t, traj))
+    t0 = time.perf_counter()
+    try:
+        import matplotlib
+    except ImportError:
+        frames = [d.diagnostic[nt - 1].cpu() for d in dash.diagnostics]
+        drawn = "not drawn (no matplotlib here); its frames copied to the host"
+        if any(tuple(fr.shape) != (100, 100) for fr in frames):
+            fail("dashboard frames")
+    else:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, _ = dash.plot(time_index=nt - 1)
+        fig.canvas.draw()
+        plt.close(fig)
+        drawn = "drawn on Agg"
+    frame_s = time.perf_counter() - t0
+    out["dashboard"] = {"ms": ms, "one_frame_s": frame_s, "frame": drawn}
+    print(f"[8] MultiDiagnostic 2x2 dashboard: {ms:.3f} ms at {nt} records; "
+          f"one frame {drawn} in {frame_s:.3f} s; {card}", flush=True)
+    del dash
+    out["launches"] = counts()
+    print(f"[8] launches across (a): {out['launches']}", flush=True)
+    if out["launches"] != {"rk4_fused": 1, "rk4_df_fused": 0}:
+        fail("phase 8's integration did not run through one K1 launch")
+    ms_each = [v["ms"] for v in out["each"].values()]
+    print(f"[8] diagnostics at {nt} records: {min(ms_each):.3f}-"
+          f"{max(ms_each):.3f} ms each", flush=True)
+
+    # -- b) RP and the ground-coupled configuration, 301 records ----------
+    out["small"] = {}
+    for label, settings, catalog_b in (
+            ("rp", rp_params, GROUND_DIAGNOSTICS[:2]),
+            ("ground", ground_params, GROUND_DIAGNOSTICS)):
+        pars_b = settings(QgParams)
+        fb, _ = create_tendencies(pars_b)
+        ib = RungeKuttaIntegrator()
+        ib.set_func(fb)
+        ib.integrate(0., 30., 0.1, ic=np.random.default_rng(9).random(
+            pars_b.ndim) * 0.05, write_steps=1)
+        tb, trb = ib.get_trajectories()
+        res = out["small"][label] = {}
+        for module, name, kwargs in catalog_b:
+            cls = getattr(modules[module], name)
+            gpu, cpu = cls(pars_b, **kwargs), cls(pars_b, **kwargs,
+                                                  device="cpu")
+            if name != "MiddleLayerVerticalVelocity":
+                oro = cpu._orography
+                if (oro is None or not np.abs(oro).max() > 0
+                        or not np.array_equal(gpu._orography, oro)):
+                    fail(f"{label} {name}: orography")
+            res[name] = card_vs_cpu(f"{label} {name}", gpu, cpu, tb, trb)
+        print(f"[8] {label} (ndim {pars_b.ndim}, {len(tb)} records): card vs "
+              f"CPU {res} of max|field|; orography a host array, equal", flush=True)
+
+    # -- c) a trace and a throughput meter of the float64 main path's call -
+    main = RungeKuttaIntegrator()
+    main.set_func(f)
+
+    def main_call():
+        main.integrate(0., 1000., 0.1, ic=ic_main, write_steps=100)
+        main.get_trajectories()
+        torch.cuda.synchronize()
+    main_call()
+    with tempfile.TemporaryDirectory() as logdir:
+        fused_rk4.launches = 0
+        with trace(logdir) as written:
+            main_call()
+        if written != logdir or fused_rk4.launches != 1:
+            fail("the traced main path did not run through one K1 launch")
+        out["trace"] = summary = trace_summary(logdir)
+    print(f"[8] trace of the float64 main path (B=4096, 10000 steps, a "
+          f"record every 100): window {summary['window_ms']:.3f} ms, device "
+          f"busy {summary['busy_share']:.4f} of it, K1 "
+          f"{summary['rk4_fused_ms']:.3f} ms ({summary['rk4_fused_share']:.4f}"
+          f"), idle {summary['idle_ms']:.3f} ms; {card}", flush=True)
+    for g in summary["longest_idle_gaps"]:
+        print(f"  idle gap {g['ms']:.3f} ms at {g['at_ms']:.3f} ms, after "
+              f"host op {g['host_op_before']!r}, during "
+              f"{g['host_op_during']!r}", flush=True)
+    for op in summary["top5_device_ops"]:
+        print(f"  device op {op['ms']:.3f} ms x{op['count']}: {op['name']}",
+              flush=True)
+    meter = ThroughputMeter(n, ensemble=len(ic_main))
+    with meter:
+        main_call()
+    meter.add_steps(10000)
+    out["throughput"] = meter.report()
+    print(f"[8] ThroughputMeter, the same call: "
+          f"{meter.traj_steps_per_s:.4g} traj-steps/s "
+          f"({meter.elapsed:.3f} s); {card}", flush=True)
+    out["seconds"] = time.perf_counter() - start
+    print(f"[8] phase 8 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     try:
@@ -1028,6 +1416,9 @@ def main():
     # -- 7. the rank-5 models, QgsModel and TrajectoriesStatistics ----------
     rank5 = rank5_phase(card, dev)
 
+    # -- 8. the diagnostics, and a profiler trace of the main path ---------
+    diagnostics = diagnostics_phase(f, ic, card, dev)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -1083,6 +1474,7 @@ def main():
                           if k.startswith("df ")},
         "card": card,
     }]
+    print(json.dumps({"diagnostics": diagnostics}), flush=True)
     print(json.dumps({"rank5": rank5}), flush=True)
     print(json.dumps({"tangent": tangent}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

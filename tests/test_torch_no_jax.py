@@ -3,8 +3,10 @@ package ``qgs_tpu`` blocked imports ``qgs_tpu_torch``, builds MAOOAM,
 integrates 10 steps on the CPU in float64 and in twofloat, 3 steps of the
 tangent-linear system and 2 Benettin windows, then runs the atmospheric
 thermodynamic tendencies, ``QgsModel``, ``TrajectoriesStatistics`` and a
-rank-5 (dynamic-T) model; no source file of the port imports either; and
-the port builds on the CUDA card unless asked for the CPU."""
+rank-5 (dynamic-T) model, and diagnostics of the MAOOAM trajectory (omega
+included) under the profiler's ``trace``; no source file of the port
+imports either; and the port builds on the CUDA card unless asked for the
+CPU."""
 
 import os
 import pathlib
@@ -88,6 +90,29 @@ integ5 = RungeKuttaIntegrator()
 integ5.set_func(f5)
 integ5.integrate(0., 0.3, 0.1, ic=np.full((2, 38), 0.05), write_steps=0)
 assert tuple(integ5.get_trajectories()[1].shape) == (2, 38)
+
+import glob, os, tempfile
+from qgs_tpu_torch.diagnostics.multi import MultiDiagnostic
+from qgs_tpu_torch.diagnostics.streamfunctions import (
+    MiddleAtmosphericStreamfunctionDiagnostic)
+from qgs_tpu_torch.diagnostics.temperatures import (
+    OceanicLayerTemperatureDiagnostic)
+from qgs_tpu_torch.diagnostics.wind import MiddleLayerVerticalVelocity
+from qgs_tpu_torch.utils.profiling import ThroughputMeter, trace
+t, traj = integ.get_trajectories()
+grid = dict(delta_x=0.5, delta_y=0.5, device="cpu")
+with tempfile.TemporaryDirectory() as logdir:
+    with trace(logdir), ThroughputMeter(36, 4) as meter:
+        omega = MiddleLayerVerticalVelocity(pars, **grid)(t, traj[0])
+        dash = MultiDiagnostic(1, 2)
+        dash.add_diagnostic(MiddleAtmosphericStreamfunctionDiagnostic(
+            pars, **grid))
+        dash.add_diagnostic(OceanicLayerTemperatureDiagnostic(pars, **grid))
+        psi, to = dash(t, traj[0])
+        meter.add_steps(10)
+    assert glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+assert psi.shape == omega.shape == to.shape and psi.shape[0] == 3
+assert bool(omega.isfinite().all()) and meter.traj_steps_per_s > 0
 assert sys.modules["jax"] is None and sys.modules["qgs_tpu"] is None
 print("OK", sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "qgs_tpu")))
