@@ -52,18 +52,33 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    ``torch.profiler`` trace (``qgs_tpu_torch.utils.profiling.trace``) of
    the float64 main path's call, summarised (window, device-busy share,
    K1's share, top five device operations, the longest idle gap), and the
-   same call under ``ThroughputMeter``.
+   same call under ``ThroughputMeter``;
+9. the parallel layer (``qgs_tpu_torch.parallel``) and the drivers: the
+   integrator's default mesh (every visible card, one K1 launch a card) on
+   the float64 main path, bit-equal to phase 4's call; a mesh naming
+   ``cuda:0`` twice at B = 4097 (padded), float64 and twofloat, two
+   launches of K1 / K2, bit-equal to the unsplit calls and held against
+   the integrator's plain float64 route, timed in turns; TGLS and BLV on
+   that mesh (rtol 1e-12, atol 1e-14); the row-sharded tendency on a 1 x 2
+   ('ensemble', 'model') layout over ``cuda:0``; the two-process self-test
+   over gloo with both ranks on ``cuda:0`` and a one-rank NCCL group's
+   gather on the card; ``main`` of both drivers (``qgs_tpu_torch.drivers``),
+   run short, each held against the same call on the plain route (rtol
+   1e-10, atol 1e-12), their files checked.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
-kernel's numbers, ``{"kernels": [...]}``, the one before that phase 6's
-numbers, ``{"tangent": {...}}``, the one before that phase 7's,
-``{"rank5": {...}}``, and the one before that phase 8's,
-``{"diagnostics": {...}}``.  Run from the repository root:
+kernel's numbers, ``{"kernels": [...]}`` (``launches`` those of the main
+paths of phases 4 and 9), the one before that phase 6's numbers,
+``{"tangent": {...}}``, the one before that phase 7's, ``{"rank5":
+{...}}``, the one before that phase 8's, ``{"diagnostics": {...}}``, and
+the one before that phase 9's, ``{"parallel": {...}}``.  Run from the
+repository root:
 
     python3 chip_smoke.py
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -78,6 +93,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 TOL64 = dict(rtol=1e-9, atol=1e-11)    # float64: only the summation order
                                        # and FMA contraction differ
 TOL32 = dict(rtol=1e-4, atol=1e-6)     # float32 kernel vs float64 plain
+TOL_DRIVER = dict(rtol=1e-10, atol=1e-12)   # a driver's run vs plain route
 
 # peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet): vector f64
 # and f32 (the kernels' sparse gathers cannot use the tensor cores), and the
@@ -761,8 +777,9 @@ def rank5_phase(card, dev):
         torch.movedim(ref, 0, -1), TOL64)
     print(f"[7] QgsModel(MAOOAM) saved, loaded, integrated: launches "
           f"{out['qgs_model_launches']}", flush=True)
-    if out["qgs_model_launches"] != {"rk4_fused": 1, "rk4_df_fused": 0}:
-        fail("the loaded QgsModel did not run through one K1 launch")
+    if out["qgs_model_launches"] != {"rk4_fused": torch.cuda.device_count(),
+                                     "rk4_df_fused": 0}:
+        fail("the loaded QgsModel did not run through one K1 launch a card")
     stats = TrajectoriesStatistics()
     stats.set_integrator(integ)
     stats.set_func_list([lambda tr: tr[:, :, -1], lambda tr: tr.mean(-1)])
@@ -1128,8 +1145,10 @@ def diagnostics_phase(f, ic_main, card, dev):
         fused_rk4.launches = 0
         with trace(logdir) as written:
             main_call()
-        if written != logdir or fused_rk4.launches != 1:
-            fail("the traced main path did not run through one K1 launch")
+        if written != logdir or fused_rk4.launches != \
+                torch.cuda.device_count():
+            fail("the traced main path did not run through one K1 launch a "
+                 "card")
         out["trace"] = summary = trace_summary(logdir)
     print(f"[8] trace of the float64 main path (B=4096, 10000 steps, a "
           f"record every 100): window {summary['window_ms']:.3f} ms, device "
@@ -1154,6 +1173,271 @@ def diagnostics_phase(f, ic_main, card, dev):
     out["seconds"] = time.perf_counter() - start
     print(f"[8] phase 8 took {out['seconds']:.1f} s", flush=True)
     return out
+
+
+TOL_SHARD = dict(rtol=1e-12, atol=1e-14)   # split against unsplit
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The integrators' plain step loop (plain torch ops) in place of the
+    fused kernels, for a reference on the same inputs."""
+    from qgs_tpu_torch.integrators import rk
+    saved = rk.fused_route
+    rk.fused_route = lambda *args: False
+    try:
+        yield
+    finally:
+        rk.fused_route = saved
+
+
+def parallel_phase(f, Df, ic_main, traj_main, card, dev):
+    """9. The parallel layer on the card: (a) the integrator's default mesh
+    (every visible card) on the float64 main path, against phase 4's call;
+    (b) a mesh naming ``cuda:0`` twice, float64 and twofloat at B = 4097,
+    against the unsplit calls, timed in turns; (c) TGLS and BLV on that
+    mesh; (d) the row-sharded tendency on a 1 x 2 ('ensemble', 'model')
+    layout over ``cuda:0``; (e) the two-process self-test over gloo, both
+    ranks on ``cuda:0``, and a one-rank NCCL group's gather on the card;
+    (f) both drivers' ``main``, run short.  The split runs of (b) and the
+    drivers' runs are held against the same calls on the integrator's plain
+    route (:func:`plain_route`).  Each path's kernel launches are counted
+    from 0.  Checks ``fail`` the run.  Returns the numbers and the launches
+    of the paths, by kernel."""
+    import io
+
+    import torch
+    from qgs_tpu_torch.drivers import qgs_maooam, qgs_rp
+    from qgs_tpu_torch.integrators.integrator import (
+        RungeKuttaIntegrator, RungeKuttaTglsIntegrator)
+    from qgs_tpu_torch.integrators.rk import make_rk_step, rk4_tableau
+    from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+    from qgs_tpu_torch.parallel import distributed
+    from qgs_tpu_torch.parallel.mesh import ensemble_mesh, ensemble_size
+    from qgs_tpu_torch.parallel.sharded_tendency import make_sharded_tendency
+    from qgs_tpu_torch.toolbox.lyapunov import compute_backward_lyapunovs
+
+    start = time.perf_counter()
+    out = {"card": card}
+    total = {"rk4_fused": 0, "rk4_df_fused": 0}
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 before it and read
+        after a synchronise; returns its result, seconds and counts."""
+        torch.cuda.synchronize()
+        fused_rk4.launches = fused_df_rk4.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        c = {"rk4_fused": fused_rk4.launches,
+             "rk4_df_fused": fused_df_rk4.launches}
+        for k in total:
+            total[k] += c[k]
+        return res, time.perf_counter() - t0, c
+
+    def integrate(mesh, precision, ic):
+        integ = RungeKuttaIntegrator(mesh=mesh, precision=precision)
+        integ.set_func(f)
+        integ.integrate(0., 1000., 0.1, ic=ic, write_steps=100)
+        return integ.get_trajectories()[1]
+
+    def close(label, got, ref, tol=TOL_SHARD, against="unsplit"):
+        got, ref = np.asarray(got.cpu()), np.asarray(ref.cpu())
+        if got.shape != ref.shape:
+            fail(f"{label}: shapes {got.shape} / {ref.shape}")
+        err = float(np.abs(got - ref).max())
+        if not np.allclose(got, ref, **tol):
+            fail(f"{label}: against {against} {err:.3e} ({tol})")
+        return err
+
+
+    # -- a) the default mesh: every visible card ---------------------------
+    n_cards = ensemble_size(ensemble_mesh())
+    traj, s, c = counted(lambda: integrate(None, "float64", ic_main))
+    print(f"[9a] default mesh: {n_cards} card(s); float64 main path B=4096 "
+          f"x 10000 steps {s:.3f} s, launches {c}; {card}", flush=True)
+    if c["rk4_fused"] != n_cards:
+        fail(f"default mesh: {c['rk4_fused']} K1 launches, expected one a "
+             f"card ({n_cards})")
+    if not torch.equal(traj, traj_main):
+        fail("default mesh: not bit-equal to phase 4's call")
+    out["a"] = {"cards": n_cards, "s": s, "launches": c, "bit_equal": True}
+    if n_cards > 1:
+        # scaling: 4096 members a card, the default mesh against one card,
+        # in turns
+        ic_n = np.concatenate([ic_main] * n_cards)
+        runs = {}
+        for key in ("one", "all", "all", "one"):
+            mesh = ensemble_mesh([dev]) if key == "one" else None
+            res, s, c = counted(lambda: integrate(mesh, "float64", ic_n))
+            runs.setdefault(key, []).append((res, s, c))
+        if not torch.equal(runs["all"][0][0], runs["one"][0][0]):
+            fail("default mesh: not bit-equal to one card")
+        ms = {k: [r[1] * 1e3 for r in v] for k, v in runs.items()}
+        print(f"[9a] B={len(ic_n)}: {n_cards} cards {min(ms['all']):.3f} "
+              f"ms (runs {ms['all']}), one card {min(ms['one']):.3f} ms "
+              f"(runs {ms['one']}); bit-equal; {card}", flush=True)
+        out["a"]["scaling_ms"] = ms
+
+    # -- b) two entries on cuda:0, B = 4097 (one padded row) ----------------
+    two, one = ensemble_mesh([dev, dev]), ensemble_mesh([dev])
+    ic = np.random.default_rng(9).random((4097, ic_main.shape[1])) * 0.01
+    out["b"] = {}
+    with plain_route():
+        plain_b = integrate(one, "float64", ic)
+    for precision, kernel in (("float64", "rk4_fused"),
+                              ("twofloat", "rk4_df_fused")):
+        runs = {}
+        for mesh in (one, two, two, one):        # in turns
+            key = "split" if mesh is two else "whole"
+            res, s, c = counted(lambda: integrate(mesh, precision, ic))
+            runs.setdefault(key, []).append((res, s, c))
+        whole, split = runs["whole"], runs["split"]
+        for (_, _, cw), (_, _, cs) in zip(whole, split):
+            if cw[kernel] != 1 or cs[kernel] != 2:
+                fail(f"two-entry mesh {precision}: {kernel} launches "
+                     f"{cs[kernel]} split / {cw[kernel]} whole, expected 2 "
+                     "/ 1")
+        if not torch.equal(split[0][0], whole[0][0]):
+            fail(f"two-entry mesh {precision}: not bit-equal to the "
+                 "unsplit call")
+        err = close(f"two-entry mesh {precision}", split[0][0], plain_b,
+                    TOL64, "the plain float64 route")
+        ms = {k: [r[1] * 1e3 for r in v] for k, v in runs.items()}
+        print(f"[9b] two entries on {dev}, {precision} B=4097 x 10000 steps: "
+              f"split {min(ms['split']):.3f} ms (runs {ms['split']}), whole "
+              f"{min(ms['whole']):.3f} ms (runs {ms['whole']}); {kernel} "
+              f"2 / 1 launches; bit-equal; split vs plain float64 route "
+              f"max err {err:.3e} (rtol 1e-9, atol 1e-11); {card}",
+              flush=True)
+        out["b"][precision] = {"split_ms": ms["split"],
+                               "whole_ms": ms["whole"], "bit_equal": True,
+                               "launches_split": 2, "vs_plain": err}
+
+    # -- c) TGLS and BLV on the two-entry mesh ------------------------------
+    n = ic_main.shape[1]
+    ic_tg = ic_main[:256]
+    tg = {}
+    for key, mesh in (("whole", one), ("split", two)):
+        def tgls():
+            integ = RungeKuttaTglsIntegrator(mesh=mesh)
+            integ.set_func(f, Df)
+            integ.integrate(0., 10., 0.1, ic=ic_tg, tg_ic=np.eye(n),
+                            write_steps=50)
+            return integ.get_trajectories()
+        tg[key] = counted(tgls)
+    err_tg = max(close("TGLS", a, b) for a, b in zip(tg["split"][0][1:],
+                                                     tg["whole"][0][1:]))
+    blv = {}
+    for key, mesh in (("whole", one), ("split", two)):
+        blv[key] = counted(lambda: compute_backward_lyapunovs(
+            f.batched, Df.batched, 0., 0.5, 1.5, 0.1, 0.1, ic_main[:16],
+            mesh=mesh))
+    err_blv = max(close("BLV", a, b) for a, b in zip(blv["split"][0][1:],
+                                                     blv["whole"][0][1:]))
+    print(f"[9c] two entries: TGLS B=256 n_tg=36 100 steps split "
+          f"{tg['split'][1]:.3f} s / whole {tg['whole'][1]:.3f} s, max err "
+          f"{err_tg:.3e}; BLV B=16 15 windows split {blv['split'][1]:.3f} s "
+          f"/ whole {blv['whole'][1]:.3f} s, max err {err_blv:.3e} (rtol "
+          f"1e-12, atol 1e-14); {card}", flush=True)
+    out["c"] = {"tgls_s": [tg["split"][1], tg["whole"][1]],
+                "tgls_max_err": err_tg,
+                "blv_s": [blv["split"][1], blv["whole"][1]],
+                "blv_max_err": err_blv}
+
+    # -- d) the model axis: rows dealt over two entries of cuda:0 -----------
+    grid = distributed.host_chip_mesh(2, [dev, dev])
+    x = torch.as_tensor(ic_main, device=dev)
+    step = make_rk_step(make_sharded_tendency(f.qgtensor.tensor, grid),
+                        *rk4_tableau())
+    (y, _, c) = counted(lambda: step(x, 0., 0.1))
+    y_ref = make_rk_step(f.batched, *rk4_tableau())(x, 0., 0.1)
+    err_model = close("row-sharded RK4 step", y, y_ref)
+    step_ms = cuda_ms(lambda: step(x, 0., 0.1))
+    ref_ms = cuda_ms(lambda: make_rk_step(f.batched, *rk4_tableau())(
+        x, 0., 0.1))
+    print(f"[9d] model axis {grid.shape} on {dev}: one RK4 step B=4096 "
+          f"{step_ms:.3f} ms (unsharded {ref_ms:.3f} ms), max err "
+          f"{err_model:.3e}, bit-equal {bool(torch.equal(y, y_ref))}; "
+          f"{card}", flush=True)
+    out["d"] = {"mesh": grid.shape, "max_err": err_model,
+                "bit_equal": bool(torch.equal(y, y_ref)),
+                "step_ms": step_ms, "unsharded_step_ms": ref_ms}
+
+    # -- e) two processes on cuda:0 over gloo; a one-rank NCCL group --------
+    t0 = time.perf_counter()
+    try:
+        reports = distributed.run_multiprocess_selftest(
+            num_processes=2, model_axis_size=2, device="cuda", timeout=300)
+    except RuntimeError as e:
+        fail(str(e))
+    selftest_s = time.perf_counter() - t0
+    for r in reports:
+        print(f"[9e] {r}", flush=True)
+    if len(reports) != 2 or not all("model-rowshard" in r for r in reports):
+        fail(f"selftest reports: {reports}")
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0,
+                           backend="nccl")
+    try:
+        backend = str(torch.distributed.get_backend())
+        z = torch.arange(4097 * n, dtype=torch.float64, device=dev).reshape(
+            4097, n)
+        gathered = distributed.gather_to_host(z)
+    finally:
+        distributed.shutdown()
+    if not np.array_equal(gathered, z.cpu().numpy()):
+        fail("one-rank NCCL gather_to_host differs")
+    print(f"[9e] two-process selftest (gloo, both ranks on {dev}) "
+          f"{selftest_s:.1f} s; one-rank {backend} gather_to_host of "
+          f"(4097, {n}) on the card ok; {card}", flush=True)
+    out["e"] = {"selftest_s": selftest_s, "reports": reports,
+                "nccl_gather": backend}
+
+    # -- f) the drivers, run short ------------------------------------------
+    # RP is cut to 1e2 + 1e2 time units: over a 1e3 transient its chaos
+    # lifts two summation orders' rounding past any tolerance of 1e-10
+    out["f"] = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, driver, kw, shape in (
+                ("qgs_maooam", qgs_maooam,
+                 dict(transient_time=1e3, integration_time=1e3,
+                      ensemble=1024), (1024, 36, 101)),
+                ("qgs_rp", qgs_rp,
+                 dict(transient_time=1e2, integration_time=1e2),
+                 (201, 21))):
+            path = os.path.join(d, f"{name}.dat")
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                (_, traj), s, c = counted(
+                    lambda: driver.main(filename=path, **kw))
+            with contextlib.redirect_stdout(io.StringIO()), plain_route():
+                _, ref = driver.main(filename=os.path.join(d, "plain.dat"),
+                                     **kw)
+            err = close(f"{name}.main", torch.as_tensor(traj),
+                        torch.as_tensor(ref), TOL_DRIVER, "the plain route")
+            written = (np.load(path.replace(".dat", ".npy"))
+                       if name == "qgs_maooam" else np.loadtxt(path))
+            B = shape[0] if name == "qgs_maooam" else 1
+            expect = 2 * (n_cards if B >= n_cards > 1 else 1)
+            if written.shape != shape or not np.isfinite(written).all():
+                fail(f"{name}: wrote {written.shape}, expected {shape}, "
+                     "finite")
+            if c["rk4_fused"] != expect:
+                fail(f"{name}: {c['rk4_fused']} K1 launches, expected "
+                     f"{expect}")
+            clock = log.getvalue().strip().splitlines()[-1]
+            print(f"[9f] {name}.main({kw}): {s:.3f} s (its clock {clock}), "
+                  f"K1 {c['rk4_fused']} launches, wrote {written.shape}, "
+                  f"vs the plain route max err {err:.3e} (rtol 1e-10, atol "
+                  f"1e-12); {card}", flush=True)
+            out["f"][name] = {"s": s, "launches": c["rk4_fused"],
+                              "shape": list(written.shape), "vs_plain": err}
+
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - start
+    print(f"[9] parallel phase {out['phase_s']:.1f} s; launches {total}; "
+          f"{card}", flush=True)
+    return out, total
 
 
 def main():
@@ -1289,7 +1573,7 @@ def main():
     # -- 4. the main path: f, Df from create_tendencies(device="cuda") above
     tp, trp = integrate_runge_kutta(lambda tt, x: f.batched(tt, x), 0.,
                                     1000., 0.1, ic_dev[:8], write_steps=100)
-    launches, err_main, main_s = {}, {}, {}
+    launches, err_main, main_s, main_traj = {}, {}, {}, {}
     for precision, kernel in (("float64", "rk4_fused"),
                               ("twofloat", "rk4_df_fused")):
         integrator = RungeKuttaIntegrator(precision=precision)
@@ -1327,6 +1611,7 @@ def main():
                               "101 records, vs plain f64 fused_rk4_reference",
                               traj, traj_ref, TOL64)
         err_main[precision] = (err_8, err_all)
+        main_traj[precision] = traj
 
     # -- 5. times ----------------------------------------------------------
     B, steps = 16384, 1000
@@ -1419,6 +1704,10 @@ def main():
     # -- 8. the diagnostics, and a profiler trace of the main path ---------
     diagnostics = diagnostics_phase(f, ic, card, dev)
 
+    # -- 9. the parallel layer and the drivers -------------------------------
+    parallel, parallel_launches = parallel_phase(f, Df, ic, main_traj["float64"],
+                                                 card, dev)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -1428,7 +1717,9 @@ def main():
         "route": "cuda",
         "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
-        "launches": launches["rk4_fused"],
+        "launches": launches["rk4_fused"] + parallel_launches["rk4_fused"],
+        "main_path_launches": launches["rk4_fused"],
+        "parallel_launches": parallel_launches["rk4_fused"],
         "flv_launches": flv_launches["float64"]["rk4_fused"],
         "max_abs_err": max(errs64),
         "ms": times["f64"][0],
@@ -1455,7 +1746,10 @@ def main():
         "route": "cuda",
         "source": "qgs_tpu_torch/csrc/rk4_df_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:107",
-        "launches": launches["rk4_df_fused"],
+        "launches": (launches["rk4_df_fused"]
+                     + parallel_launches["rk4_df_fused"]),
+        "main_path_launches": launches["rk4_df_fused"],
+        "parallel_launches": parallel_launches["rk4_df_fused"],
         "flv_launches": flv_launches["twofloat"]["rk4_df_fused"],
         "max_abs_err": err_df,
         "ms": times["df"][0],
@@ -1474,6 +1768,7 @@ def main():
                           if k.startswith("df ")},
         "card": card,
     }]
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"diagnostics": diagnostics}), flush=True)
     print(json.dumps({"rank5": rank5}), flush=True)
     print(json.dumps({"tangent": tangent}), flush=True)

@@ -5,11 +5,12 @@ Ensemble integrator class
 Counterpart of :class:`qgs_tpu.integrators.integrator.RungeKuttaIntegrator`
 and :class:`~qgs_tpu.integrators.integrator.RungeKuttaTglsIntegrator`: the
 reference API surface (``set_func`` / ``set_bca`` / ``initialize`` /
-``integrate`` / ``get_trajectories``) over one batched integration on one
-device (:func:`qgs_tpu_torch.integrators.rk.integrate_runge_kutta`, or
+``integrate`` / ``get_trajectories``) over a batched integration
+(:func:`qgs_tpu_torch.integrators.rk.integrate_runge_kutta`, or
 :func:`~qgs_tpu_torch.integrators.rk.integrate_runge_kutta_df` for
 ``precision='twofloat'``; the TGLS counterparts for the coupled
-trajectory-tangent system).
+trajectory-tangent system) whose ensemble is split over a device mesh
+(:mod:`qgs_tpu_torch.parallel.mesh`), by default every visible card.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ import torch
 from qgs_tpu_torch.integrators.rk import (
     infer_ndim, integrate_runge_kutta, integrate_runge_kutta_df,
     integrate_runge_kutta_tgls, integrate_runge_kutta_tgls_df, merge_tableau,
-    rk4_tableau,
+    resolve_device, rk4_tableau,
 )
 from qgs_tpu_torch.ops.twofloat import DfTangent, DfTendency
+from qgs_tpu_torch.parallel.mesh import ensemble_mesh
 
 
 def same_model_jacobian(fjac, qgt):
@@ -47,7 +49,8 @@ class RungeKuttaIntegrator:
     Parameters
     ----------
     num_threads: int, optional
-        Kept for API compatibility and ignored: the ensemble is one batch.
+        Kept for API compatibility and ignored: parallelism is the device
+        mesh.
     b, c, a: arrays, optional
         Butcher tableau (default RK4).
     number_of_dimensions: int, optional
@@ -64,15 +67,21 @@ class RungeKuttaIntegrator:
     device: str or torch.device, optional
         The device for a tendency function that carries none (a plain
         callable); default ``"cuda"``.
+    mesh: :class:`~qgs_tpu_torch.parallel.mesh.Mesh`, optional
+        The devices to split the ensemble over (see :attr:`mesh`).
 
     The integration runs on the device of the tendency function (else of a
     tensor ``ic``, else ``device``); the trajectories returned by
-    :meth:`get_trajectories` stay there.
+    :meth:`get_trajectories` stay there.  An ensemble of at least as many
+    members as the mesh has ensemble entries, on a mesh of more than one, is
+    split over the mesh instead: each shard runs on its device with a copy
+    of the tendency there (made once per device and function), and the
+    trajectories end up on the mesh's first device.
     """
 
     def __init__(self, num_threads=None, b=None, c=None, a=None,
                  number_of_dimensions=None, precision="float64",
-                 device=None):
+                 device=None, mesh=None):
         if precision not in ("float64", "twofloat"):
             raise ValueError(
                 f"unknown precision {precision!r}: expected 'float64' (the "
@@ -89,8 +98,32 @@ class RungeKuttaIntegrator:
         self._qgtensor = None
         self._df_func = None
         self.device = device
+        self._mesh = mesh
+        self._card_mesh = None
 
     # -- configuration -----------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The mesh the ensemble is split over: the one given, else every
+        visible card when the tendency function runs on a card, else its
+        one device."""
+        return self._mesh_for(None)
+
+    def _mesh_for(self, ic):
+        """The mesh given, else every visible card
+        (:func:`~qgs_tpu_torch.parallel.mesh.ensemble_mesh`, built once)
+        when the integration of ``ic`` runs on a card, else the one device
+        it runs on (:func:`~qgs_tpu_torch.integrators.rk.resolve_device`),
+        so that a CPU integration never touches CUDA."""
+        if self._mesh is not None:
+            return self._mesh
+        dev = resolve_device(self.func, ic, self.device)
+        if dev.type != "cuda":
+            return ensemble_mesh([dev])
+        if self._card_mesh is None:
+            self._card_mesh = ensemble_mesh()
+        return self._card_mesh
 
     def set_func(self, f, ic_init=True):
         """Set the tendency function (single-state with ``.batched``, or
@@ -197,23 +230,27 @@ class RungeKuttaIntegrator:
         if not torch.is_tensor(ic):
             ic = np.asarray(ic, dtype=np.float64)
         self.n_dim = ic.shape[-1]
+        mesh = self._mesh_for(ic)
 
         if self.precision == "twofloat":
             time, traj = integrate_runge_kutta_df(
                 self._df_tendency(), t0, t, dt, ic, forward=forward,
                 write_steps=write_steps, squeeze=False, a=self.a, b=self.b,
-                c=self.c)
+                c=self.c, mesh=mesh)
         else:
             time, traj = integrate_runge_kutta(
                 self.func, t0, t, dt, ic, forward=forward,
                 write_steps=write_steps, b=self.b, c=self.c, a=self.a,
-                squeeze=False, device=self.device)
+                squeeze=False, device=self.device, mesh=mesh)
         self._time = time
         self._recorded_traj = traj.squeeze()
 
     def get_trajectories(self):
         """Return ``(time, trajectories)`` of the last integration: times as
-        a NumPy array, trajectories a tensor on the integration's device."""
+        a NumPy array, trajectories a tensor on the integration's device.
+        On a mesh that spans processes, the shards of the other processes
+        were all-gathered at the end of :meth:`integrate` (which every
+        process must call)."""
         return self._time, self._recorded_traj
 
     def get_ic(self):
@@ -298,18 +335,19 @@ class RungeKuttaTglsIntegrator(RungeKuttaIntegrator):
             tg_ic = (self.tg_ic if self.tg_ic is not None
                      else np.eye(self.n_dim))
 
+        mesh = self._mesh_for(ic)
         if self.precision == "twofloat":
             self._check_twofloat(boundary)
             time, traj, fmat = integrate_runge_kutta_tgls_df(
                 *self._df_pair(), t0, t, dt, ic, tg_ic, forward=forward,
                 adjoint=adjoint, inverse=inverse, write_steps=write_steps,
-                a=self.a, b=self.b, c=self.c)
+                a=self.a, b=self.b, c=self.c, mesh=mesh)
         else:
             time, traj, fmat = integrate_runge_kutta_tgls(
                 self.func, self.func_jac, t0, t, dt, ic, tg_ic,
                 forward=forward, adjoint=adjoint, inverse=inverse,
                 boundary=boundary, write_steps=write_steps, b=self.b,
-                c=self.c, a=self.a, device=self.device)
+                c=self.c, a=self.a, device=self.device, mesh=mesh)
         self._time = time
         self._recorded_traj = traj.squeeze() if single else traj
         self._recorded_fmatrix = fmat.squeeze() if single else fmat

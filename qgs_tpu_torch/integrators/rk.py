@@ -30,6 +30,14 @@ batch of states (B, ndim), in the tendency's dtype
 * Device: an entry point runs on the tendency function's ``.device``, else
   on the device of a tensor ``ic``, else on ``device`` (default ``"cuda"``:
   without a card PyTorch raises; there is no CPU fallback).
+* ``mesh=`` (:mod:`qgs_tpu_torch.parallel.mesh`): a batch that fills the
+  mesh's ensemble axis is split over it, each shard integrated on its
+  device by a copy of the tendency there (one kernel launch a shard, or
+  one step loop stepping every shard in turn), and the records
+  concatenated on the mesh's first device
+  (:func:`~qgs_tpu_torch.parallel.mesh.map_shards`).  Each
+  trajectory's arithmetic does not depend on the batch, so the result
+  equals the unsplit one.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from qgs_tpu_torch.ops.twofloat import (
     make_df_rk_step_dynamic, make_df_tgls_rk4_step_dynamic,
     make_df_tgls_rk_step_dynamic,
 )
+from qgs_tpu_torch.parallel.mesh import map_shards
 
 
 def rk4_tableau():
@@ -240,9 +249,10 @@ def fused_route(f, y, tableau):
 
 
 def _stack(recs):
-    """Stack records along a new first axis, part by part for tuples."""
+    """Stack records along a new first axis, part by part (recursively)
+    for tuples."""
     if isinstance(recs[0], tuple):
-        return tuple(torch.stack(part) for part in zip(*recs))
+        return tuple(_stack(part) for part in zip(*recs))
     return torch.stack(recs)
 
 
@@ -271,6 +281,17 @@ def _assemble(y0, recs, final, n_steps, write_steps):
     return torch.cat(parts)
 
 
+def _step_loops(steps, ys, tts, dts, write_steps, record=lambda y: y):
+    """:func:`_step_loop` of every shard ``ys[k]`` under ``steps[k]`` at
+    once: step ``s`` of every shard before step ``s + 1`` of any, so that
+    their devices work side by side.  Returns each shard's records."""
+    def step(carries, tt, dt):
+        return tuple(st(c, tt, dt) for st, c in zip(steps, carries))
+
+    return list(_step_loop(step, tuple(ys), tts, dts, write_steps,
+                           lambda cs: tuple(record(c) for c in cs)))
+
+
 def _fused_loop(f, y, dts, write_steps):
     """The same records from one launch of the fused RK4 kernel."""
     dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y.device)
@@ -285,6 +306,26 @@ def _fused_df_loop(f, y, dts, write_steps):
     final, recs = _fused_df.fused_df_rk4(f, *y, dts_dev, write_steps)
     return _assemble(df_to_f64(y), df_to_f64(recs), df_to_f64(final),
                      len(dts), write_steps)
+
+
+def _rk_records(fns, ys, tableau, tts, dts, write_steps):
+    """Each shard's stacked records: one fused-kernel launch a shard, else
+    one plain step loop over every shard."""
+    if fused_route(fns[0], ys[0], tableau):
+        return [_fused_loop(f, y, dts, write_steps) for f, y in zip(fns, ys)]
+    return _step_loops([make_rk_step(f, *tableau) for f in fns], ys, tts,
+                       dts, write_steps)
+
+
+def _df_records(fns, ys, tableau, tts, dts, write_steps):
+    """The same in double-float, from float64 shards, records float64."""
+    ys = [df_from_f64(y) for y in ys]
+    if fused_route(fns[0], ys[0], tableau):
+        return [_fused_df_loop(f, y, dts, write_steps)
+                for f, y in zip(fns, ys)]
+    steps = [make_df_rk4_step_dynamic(f) if _is_rk4(*tableau)
+             else make_df_rk_step_dynamic(f, *tableau) for f in fns]
+    return _step_loops(steps, ys, tts, dts, write_steps, df_to_f64)
 
 
 def _directed_grid(t0, t, dt, forward):
@@ -310,7 +351,8 @@ def _finish(time, recs, forward, write_steps, squeeze):
 
 
 def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
-                          b=None, c=None, a=None, squeeze=True, device=None):
+                          b=None, c=None, a=None, squeeze=True, device=None,
+                          mesh=None):
     """Integrate dx/dt = f(t, x) over [t0, t] for a batch of initial
     conditions; returns ``(times, traj)`` with traj shaped (B, ndim,
     n_records) (squeezed), a tensor on the integration's device.
@@ -319,7 +361,10 @@ def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
     integration runs in ``f``'s dtype (else ``ic``'s) and on the device that
     :func:`resolve_device` gives (``ic`` is cast and moved there).  With
     ``ic=None`` the state dimension is probed from ``f`` and a zero initial
-    condition is used.
+    condition is used.  With a ``mesh`` (:mod:`qgs_tpu_torch.parallel.mesh`)
+    whose ensemble axis the batch fills, each shard runs on its device (one
+    kernel launch a shard on the fused route) and the trajectory ends up on
+    the mesh's first device.
     """
     if ic is None:
         ic = np.zeros((1, infer_ndim(f, device)))
@@ -327,21 +372,18 @@ def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)
-
-    if fused_route(f, y, (a, b, c)):
-        recs = _fused_loop(f, y, dts, write_steps)
-    else:
-        recs = _step_loop(make_rk_step(f, a, b, c), y, tts, dts, write_steps)
+    recs = map_shards(mesh, y, f, lambda fns, ys: _rk_records(
+        fns, ys, (a, b, c), tts, dts, write_steps), dim=1)
     return _finish(time, recs, forward, write_steps, squeeze)
 
 
 def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
                              squeeze=True, a=None, b=None, c=None,
-                             device=None):
+                             device=None, mesh=None):
     """Integrate the model in double-float (pairs of float32) arithmetic:
-    about 48-bit-mantissa trajectories, with the time grid and record
-    semantics of :func:`integrate_runge_kutta`.  Counterpart of the JAX
-    package's ``integrate_runge_kutta_df``.
+    about 48-bit-mantissa trajectories, with the time grid, record and
+    ``mesh`` semantics of :func:`integrate_runge_kutta`.  Counterpart of the
+    JAX package's ``integrate_runge_kutta_df``.
 
     ``f`` is a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`, or any
     ``f(y_hi, y_lo) -> (f_hi, f_lo)`` on (B, ndim) pairs.  ``ic`` is float64
@@ -351,19 +393,12 @@ def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
     rank-3 ``DfTendency`` on a CUDA state runs in one launch of the fused
     kernel; every other case runs the plain double-float step loop.
     """
-    y = df_from_f64(as_state(f, ic, device, torch.float64))
+    y = as_state(f, ic, device, torch.float64)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)
-
-    if fused_route(f, y, (a, b, c)):
-        recs = _fused_df_loop(f, y, dts, write_steps)
-    elif _is_rk4(a, b, c):
-        recs = _step_loop(make_df_rk4_step_dynamic(f), y, tts, dts,
-                          write_steps, df_to_f64)
-    else:
-        recs = _step_loop(make_df_rk_step_dynamic(f, a, b, c), y, tts, dts,
-                          write_steps, df_to_f64)
+    recs = map_shards(mesh, y, f, lambda fns, ys: _df_records(
+        fns, ys, (a, b, c), tts, dts, write_steps), dim=1)
     return _finish(time, recs, forward, write_steps, squeeze)
 
 
@@ -406,7 +441,7 @@ def _finish_tgls(time, recs, forward, write_steps):
 def integrate_runge_kutta_tgls(f, fjac, t0, t, dt, ic, tg_ic, forward=True,
                                adjoint=False, inverse=False, boundary=None,
                                write_steps=1, b=None, c=None, a=None,
-                               device=None):
+                               device=None, mesh=None):
     """Integrate the coupled (trajectory, tangent-linear) system over [t0,
     t] with the Jacobian ``fjac`` materialized at every stage.
 
@@ -415,23 +450,30 @@ def integrate_runge_kutta_tgls(f, fjac, t0, t, dt, ic, tg_ic, forward=True,
     is propagated.  Returns ``(times, traj, fmatrix)`` with the reference
     shapes (B, ndim, n_records) and (B, ndim, n_tg, n_records), squeezed, as
     tensors on the device that :func:`resolve_device` gives, in ``f``'s
-    dtype (else ``ic``'s)."""
+    dtype (else ``ic``'s).  With a ``mesh`` the states and their tangent
+    blocks are split over it together, as in :func:`integrate_runge_kutta`
+    (``boundary`` is called with each shard as it is)."""
     y, tg = _tgls_start(f, ic, tg_ic, device)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)
-    step = make_tgls_step(f, fjac, a, b, c, adjoint=adjoint, inverse=inverse,
-                          boundary=boundary)
-    recs = _step_loop(step, (y, tg), tts, dts, write_steps)
+
+    def records(fns, carries):
+        steps = [make_tgls_step(fk, jk, a, b, c, adjoint=adjoint,
+                                inverse=inverse, boundary=boundary)
+                 for fk, jk in fns]
+        return _step_loops(steps, carries, tts, dts, write_steps)
+
+    recs = map_shards(mesh, (y, tg), (f, fjac), records, dim=1)
     return _finish_tgls(time, recs, forward, write_steps)
 
 
 def integrate_runge_kutta_tgls_df(f, tangent, t0, t, dt, ic, tg_ic,
                                   forward=True, adjoint=False, inverse=False,
                                   write_steps=1, a=None, b=None, c=None,
-                                  device=None):
+                                  device=None, mesh=None):
     """Integrate the coupled (trajectory, tangent) system in double-float
-    arithmetic, with the time grid, record and shape semantics of
+    arithmetic, with the time grid, record, shape and ``mesh`` semantics of
     :func:`integrate_runge_kutta_tgls`.  Counterpart of the JAX package's
     ``integrate_runge_kutta_tgls_df``.
 
@@ -441,15 +483,21 @@ def integrate_runge_kutta_tgls_df(f, tangent, t0, t, dt, ic, tg_ic,
     are float64 and so are the results.  Any explicit Butcher tableau is
     accepted (default RK4); there is no boundary term."""
     y, tg = _tgls_start(f, ic, tg_ic, device, torch.float64)
-    tangent = tangent.with_transform(adjoint, inverse)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
-    if _is_rk4(a, b, c):
-        step = make_df_tgls_rk4_step_dynamic(f, tangent)
-    else:
-        step = make_df_tgls_rk_step_dynamic(f, tangent, a, b, c)
     time, tts, dts = _directed_grid(t0, t, dt, forward)
-    recs = _step_loop(step, (df_from_f64(y), df_from_f64(tg)), tts, dts,
-                      write_steps, lambda c: (df_to_f64(c[0]),
-                                              df_to_f64(c[1])))
+
+    def records(fns, carries):
+        steps = []
+        for fk, tk in fns:
+            tk = tk.with_transform(adjoint, inverse)
+            steps.append(make_df_tgls_rk4_step_dynamic(fk, tk)
+                         if _is_rk4(a, b, c)
+                         else make_df_tgls_rk_step_dynamic(fk, tk, a, b, c))
+        return _step_loops(
+            steps, [(df_from_f64(y), df_from_f64(m)) for y, m in carries],
+            tts, dts, write_steps,
+            lambda c: (df_to_f64(c[0]), df_to_f64(c[1])))
+
+    recs = map_shards(mesh, (y, tg), (f, tangent), records, dim=1)
     return _finish_tgls(time, recs, forward, write_steps)

@@ -18,7 +18,10 @@ intersection), over a batch of trajectories at once.
   (:func:`forward_boundary_states`).
 * Device: every function runs on ``f``'s ``.device``, else the device of a
   tensor ``ic``, else ``device`` (default ``"cuda"``), and returns tensors
-  there; without a card the default raises.
+  there; without a card the default raises.  ``mesh=`` splits the ensemble
+  over a device mesh (:mod:`qgs_tpu_torch.parallel.mesh`), the shards run
+  one after another, each on its device, and the results are concatenated
+  on the mesh's first device.
 
 Conventions: ``dt`` must be an integer multiple of ``mdt`` and every span an
 integer multiple of ``dt``.  Shapes: trajectories (B, n); vector blocks (B,
@@ -43,6 +46,7 @@ from qgs_tpu_torch.ops.twofloat import (
     make_df_rk4_step, make_df_rk_step_dynamic, make_df_tgls_rk4_step,
     make_df_tgls_rk_step_dynamic,
 )
+from qgs_tpu_torch.parallel.mesh import map_shards
 
 
 def _n_windows(t0, t1, dt):
@@ -197,13 +201,33 @@ def _window(f, fjac, dt, mdt, tableau, adjoint, inverse, backward,
 
 
 def _start(f, ic, precision, tensors, tableau, device):
-    """The initial state (float64 for twofloat) and whether the run is in
-    double-float."""
-    df_mode = precision == "twofloat"
-    if df_mode:
+    """The initial state (float64 for twofloat), after the twofloat
+    arguments' checks."""
+    if precision == "twofloat":
         _check_df_args(tensors, tableau)
-    y = as_state(f, ic, device, torch.float64 if df_mode else None)
-    return y, df_mode
+    return as_state(f, ic, device,
+                    torch.float64 if precision == "twofloat" else None)
+
+
+def _sharded(mesh, y, f, fjac, run):
+    """``run(f, fjac, y, members)`` on the ensemble ``y`` (B, n), whole or
+    shard by shard over the mesh
+    (:func:`~qgs_tpu_torch.parallel.mesh.map_shards`), the tangent blocks
+    starting from each shard's states.  ``members`` (a tensor) holds the
+    indices in the batch of the shard's members (the padding repeats the
+    last).  The shards run one after another; the times are the first
+    shard's."""
+    members = torch.arange(y.shape[0], device=y.device)
+    return map_shards(mesh, (y, members), (f, fjac), lambda fns, ys: [
+        run(fk, jk, yk, mk) for (fk, jk), (yk, mk) in zip(fns, ys)])
+
+
+def _squeezed(out):
+    """The outputs with their tensors squeezed (part by part in tuples), as
+    the reference returns them."""
+    return (out[0],) + tuple(
+        tuple(p.squeeze() for p in x) if isinstance(x, tuple) else x.squeeze()
+        for x in out[1:])
 
 
 def _broadcast(a, y, B):
@@ -228,9 +252,9 @@ def _to_f64(x, df_mode):
 
 
 def _outputs(times, ys, vecs, exps):
-    """Squeezed ``(times, traj (B, n, T), exponents (B, n_vec, T), vectors
-    (B, n, n_vec, T))`` from per-record lists."""
-    stack = (lambda xs: torch.movedim(torch.stack(xs), 0, -1).squeeze())
+    """``(times, traj (B, n, T), exponents (B, n_vec, T), vectors (B, n,
+    n_vec, T))`` from per-record lists (unsqueezed)."""
+    stack = (lambda xs: torch.movedim(torch.stack(xs), 0, -1))
     return times, stack(ys), stack(exps), stack(vecs)
 
 
@@ -241,7 +265,7 @@ def _outputs(times, ys, vecs, exps):
 def compute_backward_lyapunovs(f, fjac, t0, tw, t, dt, mdt, ic, n_vec=None,
                                write_steps=1, adjoint=False, inverse=False,
                                tableau=None, seed=0, precision=None,
-                               tensors=None, device=None):
+                               tensors=None, device=None, mesh=None):
     """Backward Lyapunov vectors and exponents between ``tw`` and ``t`` after
     a convergence transient from ``t0`` to ``tw`` (Benettin QR algorithm).
 
@@ -250,9 +274,20 @@ def compute_backward_lyapunovs(f, fjac, t0, tw, t, dt, mdt, ic, n_vec=None,
     tangent runs through the direct contraction; ``precision='twofloat'``
     (which needs them) propagates in double-float with a float64 QR a
     window.  The exponent recorded at a window's start is that of the
-    window before it (zero at ``tw``).  Returns ``(times, traj, exponents,
-    vectors)`` shaped (B, n, T), (B, n_vec, T), (B, n, n_vec, T), squeezed."""
-    y, df_mode = _start(f, ic, precision, tensors, tableau, device)
+    window before it (zero at ``tw``).  With a ``mesh`` the ensemble and
+    its tangent blocks are split over it (:func:`_sharded`).  Returns
+    ``(times, traj, exponents, vectors)`` shaped (B, n, T), (B, n_vec, T),
+    (B, n, n_vec, T), squeezed."""
+    y = _start(f, ic, precision, tensors, tableau, device)
+    return _squeezed(_sharded(mesh, y, f, fjac, lambda fk, jk, yk, _: (
+        _backward(fk, jk, t0, tw, t, dt, mdt, yk, n_vec, write_steps,
+                  adjoint, inverse, tableau, seed, precision, tensors))))
+
+
+def _backward(f, fjac, t0, tw, t, dt, mdt, y, n_vec, write_steps, adjoint,
+              inverse, tableau, seed, precision, tensors):
+    """:func:`compute_backward_lyapunovs` of the state ``y``, unsqueezed."""
+    df_mode = precision == "twofloat"
     B, n = y.shape
     n_vec = n if n_vec is None else n_vec
     n_pre = _n_windows(t0, tw, dt)
@@ -335,14 +370,23 @@ def forward_boundary_states(f, y, n_windows, n_sub, mdt, tableau=None):
 def compute_forward_lyapunovs(f, fjac, t0, tw, t, dt, mdt, ic, n_vec=None,
                               write_steps=1, adjoint=False, inverse=False,
                               tableau=None, seed=0, precision=None,
-                              tensors=None, device=None):
+                              tensors=None, device=None, mesh=None):
     """Forward Lyapunov vectors and exponents between ``t0`` and ``tw``: the
     trajectory is integrated forward to ``t``
     (:func:`forward_boundary_states`), then the tangent flow is propagated
     backward with a QR every window, converging over [t, tw] and recording
     over [tw, t0].  The vectors come out in ascending-exponent order.
     Options and shapes as :func:`compute_backward_lyapunovs`."""
-    y, df_mode = _start(f, ic, precision, tensors, tableau, device)
+    y = _start(f, ic, precision, tensors, tableau, device)
+    return _squeezed(_sharded(mesh, y, f, fjac, lambda fk, jk, yk, _: (
+        _forward(fk, jk, t0, tw, t, dt, mdt, yk, n_vec, write_steps,
+                 adjoint, inverse, tableau, seed, precision, tensors))))
+
+
+def _forward(f, fjac, t0, tw, t, dt, mdt, y, n_vec, write_steps, adjoint,
+             inverse, tableau, seed, precision, tensors):
+    """:func:`compute_forward_lyapunovs` of the state ``y``, unsqueezed."""
+    df_mode = precision == "twofloat"
     B, n = y.shape
     n_vec = n if n_vec is None else n_vec
     n_rec = _n_windows(t0, tw, dt)
@@ -387,7 +431,8 @@ def compute_forward_lyapunovs(f, fjac, t0, tw, t, dt, mdt, ic, n_vec=None,
 
 def compute_clvs_ginelli(f, fjac, t0, ta, tb, tc, dt, mdt, ic, n_vec=None,
                          write_steps=1, tableau=None, seed=0, noise_pert=0.0,
-                         precision=None, tensors=None, device=None):
+                         precision=None, tensors=None, device=None,
+                         mesh=None):
     """Covariant Lyapunov vectors between ``ta`` and ``tb`` by the Ginelli
     method: a forward Benettin pass from ``t0`` storing R (and Q at the
     recorded points), then a backward pass of triangular solves from
@@ -398,8 +443,22 @@ def compute_clvs_ginelli(f, fjac, t0, ta, tb, tc, dt, mdt, ic, n_vec=None,
     generator, so that 0 adds exact zeros) is added to the diagonal of the
     coefficient matrix before the columns are normalized (Kuptsov & Parlitz
     2012).  With ``precision='twofloat'`` the forward windows run in
-    double-float and the backward pass in native float64."""
-    y, df_mode = _start(f, ic, precision, tensors, tableau, device)
+    double-float and the backward pass in native float64.  With a ``mesh``
+    the ensemble is split over it (:func:`_sharded`), each member keeping
+    the noise it draws unsplit."""
+    y = _start(f, ic, precision, tensors, tableau, device)
+    n_all = y.shape[0]
+    return _squeezed(_sharded(mesh, y, f, fjac, lambda fk, jk, yk, members: (
+        _ginelli(fk, jk, t0, ta, tb, tc, dt, mdt, yk, n_vec, write_steps,
+                 tableau, seed, noise_pert, precision, tensors, members,
+                 n_all))))
+
+
+def _ginelli(f, fjac, t0, ta, tb, tc, dt, mdt, y, n_vec, write_steps,
+             tableau, seed, noise_pert, precision, tensors, members, n_all):
+    """:func:`compute_clvs_ginelli` of the state ``y``, members ``members``
+    of an ensemble of ``n_all``, unsqueezed."""
+    df_mode = precision == "twofloat"
     B, n = y.shape
     n_vec = n if n_vec is None else n_vec
     n_pre = _n_windows(t0, ta, dt)
@@ -410,8 +469,10 @@ def compute_clvs_ginelli(f, fjac, t0, ta, tb, tc, dt, mdt, ic, n_vec=None,
     Q0 = _broadcast(np.linalg.qr(rng.standard_normal((n, n_vec)))[0], y, B)
     A0 = np.linalg.qr(rng.standard_normal((n_vec, n_vec)))[1]
     A = _broadcast(A0 / np.linalg.norm(A0, axis=0, keepdims=True), y, B)
-    noise = torch.as_tensor(rng.standard_normal((n_rec + n_post, B, n_vec))
-                            * noise_pert, dtype=y.dtype, device=y.device)
+    noise = torch.as_tensor(
+        rng.standard_normal((n_rec + n_post, n_all, n_vec))[
+            :, members.cpu().numpy()]
+        * noise_pert, dtype=y.dtype, device=y.device)
     window, _ = _window(f, fjac, dt, mdt, tableau, False, False, False,
                         precision, tensors, y)
     carry = (df_from_f64(y), df_from_f64(Q0)) if df_mode else (y, Q0)
@@ -500,7 +561,8 @@ def _subspace_intersect(Bfull, Ffull):
 def compute_clvs_subspace(f, fjac, t0, ta, tb, tc, dt, mdt, ic,
                           write_steps=1, tableau=None, seed=0,
                           return_blvs=False, return_flvs=False,
-                          precision=None, tensors=None, device=None):
+                          precision=None, tensors=None, device=None,
+                          mesh=None):
     """Covariant Lyapunov vectors by intersecting the BLV and FLV subspaces
     (Eckmann-Ruelle, Kuptsov-Parlitz): CLV_j spans ``span(BLV_1..j) ∩
     span(FLV_1..n-j+1)``.  The BLVs come from [t0, ta] converging and [ta,
@@ -508,21 +570,29 @@ def compute_clvs_subspace(f, fjac, t0, ta, tb, tc, dt, mdt, ic,
     (``precision='twofloat'`` propagates both passes in double-float).  The
     local exponents come from one TGLS ``mdt`` step of ``f``/``fjac`` on the
     CLVs.  Returns ``(times, traj, exponents, vectors)`` and, when asked,
-    ``(exponents, vectors)`` of the BLVs and of the FLVs."""
-    y = as_state(f, ic, device, torch.float64 if precision == "twofloat"
-                 else None)
-    B, n = y.shape
-    kw = dict(write_steps=write_steps, tableau=tableau, seed=seed,
-              precision=precision, tensors=tensors, device=device)
-    tt_b, traj, bexp, bvec = compute_backward_lyapunovs(
-        f, fjac, t0, ta, tb, dt, mdt, y, n_vec=n, **kw)
-    traj = traj.reshape(B, n, -1)
-    # the forward pass starts at ta, from the state there
-    _, _, fexp, fvec = compute_forward_lyapunovs(
-        f, fjac, ta, tb, tc, dt, mdt, traj[:, :, 0], n_vec=n, **kw)
+    ``(exponents, vectors)`` of the BLVs and of the FLVs.  With a ``mesh``
+    the whole computation runs shard by shard (:func:`_sharded`)."""
+    y = _start(f, ic, precision, tensors, tableau, device)
+    return _squeezed(_sharded(mesh, y, f, fjac, lambda fk, jk, yk, _: (
+        _subspace(fk, jk, t0, ta, tb, tc, dt, mdt, yk, write_steps, tableau,
+                  seed, return_blvs, return_flvs, precision, tensors))))
 
-    Bfull = torch.movedim(bvec.reshape(B, n, n, -1), -1, 1)     # (B, T, n, n)
-    Ffull = torch.movedim(fvec.reshape(B, n, n, -1), -1, 1)
+
+def _subspace(f, fjac, t0, ta, tb, tc, dt, mdt, y, write_steps, tableau,
+              seed, return_blvs, return_flvs, precision, tensors):
+    """:func:`compute_clvs_subspace` of the state ``y``, unsqueezed."""
+    B, n = y.shape
+    kw = dict(write_steps=write_steps, adjoint=False, inverse=False,
+              tableau=tableau, seed=seed, precision=precision,
+              tensors=tensors)
+    tt_b, traj, bexp, bvec = _backward(f, fjac, t0, ta, tb, dt, mdt, y, n,
+                                       **kw)
+    # the forward pass starts at ta, from the state there
+    _, _, fexp, fvec = _forward(f, fjac, ta, tb, tc, dt, mdt, traj[:, :, 0],
+                                n, **kw)
+
+    Bfull = torch.movedim(bvec, -1, 1)                           # (B, T, n, n)
+    Ffull = torch.movedim(fvec, -1, 1)
     clvs = torch.movedim(_subspace_intersect(Bfull, Ffull), 1, -1)
 
     # local exponents: one TGLS mdt step of every record at once
@@ -536,7 +606,7 @@ def compute_clvs_subspace(f, fjac, t0, ta, tb, tc, dt, mdt, ic,
     exps = torch.movedim((torch.log(torch.abs(norms)) / mdt).reshape(T, B, n),
                          0, -1)
 
-    out = [tt_b, traj.squeeze(), exps.squeeze(), clvs.squeeze()]
+    out = [tt_b, traj, exps, clvs]
     if return_blvs:
         out.append((bexp, bvec))
     if return_flvs:
@@ -556,7 +626,8 @@ class _Estimator:
     """What the two estimators share: the tableau, the functions, and the
     model's tensors when ``fjac`` is the same model's Jacobian."""
 
-    def __init__(self, b, c, a, number_of_dimensions, precision, device):
+    def __init__(self, b, c, a, number_of_dimensions, precision, device,
+                 mesh):
         # partial tableaux merge with the RK4 defaults, as set_bca
         self.tableau = merge_tableau(a, b, c)
         self.func = None
@@ -570,6 +641,7 @@ class _Estimator:
                 "(the functions' dtype) or 'twofloat'")
         self.precision = precision
         self.device = device
+        self.mesh = mesh
         self._tensors = None
 
     def set_func(self, f, fjac):
@@ -602,7 +674,8 @@ class _Estimator:
 
     def _kw(self):
         return dict(tableau=self.tableau, precision=self.precision,
-                    tensors=self._tensors, device=self.device)
+                    tensors=self._tensors, device=self.device,
+                    mesh=self.mesh)
 
     def _ic(self, ic):
         return self.ic if ic is None else ic
@@ -612,11 +685,15 @@ class LyapunovsEstimator(_Estimator):
     """Benettin BLV/FLV estimator with the reference's class API.
     ``precision='twofloat'`` propagates the tangent in double-float and
     needs ``set_func`` with functions from ``create_tendencies``; ``device``
-    is the device for functions that carry none (default ``"cuda"``)."""
+    is the device for functions that carry none (default ``"cuda"``);
+    ``mesh`` splits the ensemble of initial conditions, with their tangent
+    blocks, over its devices."""
 
     def __init__(self, num_threads=None, b=None, c=None, a=None,
-                 number_of_dimensions=None, precision=None, device=None):
-        super().__init__(b, c, a, number_of_dimensions, precision, device)
+                 number_of_dimensions=None, precision=None, device=None,
+                 mesh=None):
+        super().__init__(b, c, a, number_of_dimensions, precision, device,
+                         mesh)
 
     def compute_lyapunovs(self, t0, tw, t, dt, mdt, ic=None, write_steps=1,
                           n_vec=None, forward=False, adjoint=False,
@@ -641,8 +718,9 @@ class CovariantLyapunovsEstimator(_Estimator):
 
     def __init__(self, num_threads=None, b=None, c=None, a=None,
                  number_of_dimensions=None, noise_pert=0.0, precision=None,
-                 device=None):
-        super().__init__(b, c, a, number_of_dimensions, precision, device)
+                 device=None, mesh=None):
+        super().__init__(b, c, a, number_of_dimensions, precision, device,
+                         mesh)
         self.noise_pert = noise_pert
         self._blvs = None
         self._flvs = None

@@ -3,10 +3,10 @@ package ``qgs_tpu`` blocked imports ``qgs_tpu_torch``, builds MAOOAM,
 integrates 10 steps on the CPU in float64 and in twofloat, 3 steps of the
 tangent-linear system and 2 Benettin windows, then runs the atmospheric
 thermodynamic tendencies, ``QgsModel``, ``TrajectoriesStatistics`` and a
-rank-5 (dynamic-T) model, and diagnostics of the MAOOAM trajectory (omega
-included) under the profiler's ``trace``; no source file of the port
-imports either; and the port builds on the CUDA card unless asked for the
-CPU."""
+rank-5 (dynamic-T) model, diagnostics of the MAOOAM trajectory (omega
+included) under the profiler's ``trace``, the integration split over a
+four-entry CPU mesh and the RP driver; no source file of the port imports
+either; and the port builds on the CUDA card unless asked for the CPU."""
 
 import os
 import pathlib
@@ -113,6 +113,26 @@ with tempfile.TemporaryDirectory() as logdir:
     assert glob.glob(os.path.join(logdir, "*.pt.trace.json"))
 assert psi.shape == omega.shape == to.shape and psi.shape[0] == 3
 assert bool(omega.isfinite().all()) and meter.traj_steps_per_s > 0
+
+import contextlib, io
+from qgs_tpu_torch.drivers import qgs_maooam, qgs_rp
+from qgs_tpu_torch.parallel import distributed, sharded_tendency
+from qgs_tpu_torch.parallel.mesh import ensemble_mesh
+ic4 = np.random.default_rng(0).random((4, pars.ndim)) * 0.01
+split = RungeKuttaIntegrator(mesh=ensemble_mesh(["cpu"] * 4))
+split.set_func(f)
+split.integrate(0., 1., 0.1, ic=ic4, write_steps=5)
+integ.integrate(0., 1., 0.1, ic=ic4, write_steps=5)
+assert bool((split.get_trajectories()[1]
+             - integ.get_trajectories()[1]).abs().max() == 0)
+assert distributed.host_chip_mesh(2, ["cpu"] * 4).shape == {
+    "ensemble": 2, "model": 2}
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stdout(io.StringIO()):
+    t, y = qgs_rp.main(transient_time=1., integration_time=1.,
+                       filename=os.path.join(d, "evol_fields.dat"),
+                       device="cpu")
+    assert np.loadtxt(os.path.join(d, "evol_fields.dat")).shape == (3, 21)
 assert sys.modules["jax"] is None and sys.modules["qgs_tpu"] is None
 print("OK", sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "qgs_tpu")))
