@@ -64,16 +64,26 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    over gloo with both ranks on ``cuda:0`` and a one-rank NCCL group's
    gather on the card; ``main`` of both drivers (``qgs_tpu_torch.drivers``),
    run short, each held against the same call on the plain route (rtol
-   1e-10, atol 1e-12), their files checked.
+   1e-10, atol 1e-12), their files checked;
+10. the reference-compatibility surface: a reference-style MAOOAM script
+   (``import qgs_tpu_torch.compat``, then the ``qgs.*`` import block of the
+   reference's entry scripts) in a child process with jax and the JAX
+   package blocked, ``RungeKuttaIntegrator().integrate`` at B = 4096, 1000
+   steps, in float64 and twofloat: exactly one K1 and one K2 launch, the
+   trajectories bit-equal to the same calls through ``qgs_tpu_torch``
+   directly; the port's native C++ oracle built on the card's host, bit
+   for bit the NumPy backend on MAOOAM, and K1 against it over 300 steps;
+   the symbolic python export of the RP 2x2 symbolic configuration against
+   the port's ``f`` and ``Df`` on the card.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
 kernel's numbers, ``{"kernels": [...]}`` (``launches`` those of the main
-paths of phases 4 and 9), the one before that phase 6's numbers,
-``{"tangent": {...}}``, the one before that phase 7's, ``{"rank5":
-{...}}``, the one before that phase 8's, ``{"diagnostics": {...}}``, and
-the one before that phase 9's, ``{"parallel": {...}}``.  Run from the
-repository root:
+paths of phases 4, 9 and 10), the one before that phase 10's numbers,
+``{"compat": {...}}``, the one before that phase 6's, ``{"tangent":
+{...}}``, the one before that phase 7's, ``{"rank5": {...}}``, the one
+before that phase 8's, ``{"diagnostics": {...}}``, and the one before that
+phase 9's, ``{"parallel": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -1440,6 +1450,235 @@ def parallel_phase(f, Df, ic_main, traj_main, card, dev):
     return out, total
 
 
+TOL_SYMBOLIC = dict(rtol=1e-8, atol=1e-10)   # exported python vs f, Df
+                                             # (tests/test_symbolic_export.py)
+
+# Phase 10 (a): a reference-style MAOOAM script in a child process, with
+# jax and the JAX package blocked; the ``qgs`` import block of the
+# reference's ``qgs_rp.py``.  Arguments: the repository root and the file
+# it saves its trajectories to.  Its last line is one JSON object.
+COMPAT_SCRIPT = r'''
+import json, sys, time
+t_start = time.perf_counter()
+sys.modules["jax"] = None          # any import of jax now raises ImportError
+sys.modules["qgs_tpu"] = None      # and so does any of the JAX package
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import qgs_tpu_torch.compat
+from qgs.params.params import QgParams
+from qgs.functions.tendencies import create_tendencies
+from qgs.integrators.integrator import RungeKuttaIntegrator
+from qgs.ops import fused_df_rk4, fused_rk4
+assert fused_rk4 is sys.modules["qgs_tpu_torch.ops.fused_rk4"]
+
+model_parameters = QgParams()
+model_parameters.set_atmospheric_channel_fourier_modes(2, 2)
+model_parameters.set_oceanic_basin_fourier_modes(2, 4)
+model_parameters.set_params({'kd': 0.0290, 'kdp': 0.0290, 'n': 1.5,
+                             'r': 1.e-7, 'h': 136.5, 'd': 1.1e-7})
+model_parameters.atemperature_params.set_params({'eps': 0.7, 'T0': 289.3,
+                                                 'hlambda': 15.06})
+model_parameters.gotemperature_params.set_params({'gamma': 5.6e8,
+                                                  'T0': 301.46})
+model_parameters.atemperature_params.set_insolation(103.3333, 0)
+model_parameters.gotemperature_params.set_insolation(310., 0)
+f, Df = create_tendencies(model_parameters)       # on the card by default
+torch.cuda.synchronize()
+out = {"to_card_s": time.perf_counter() - t_start,
+       "device": str(f.batched.device)}
+ic = np.random.default_rng(0).random((4096, model_parameters.ndim)) * 0.01
+saved = {}
+for precision in ("float64", "twofloat"):
+    integrator = RungeKuttaIntegrator(precision=precision)
+    integrator.set_func(f)
+    torch.cuda.synchronize()
+    fused_rk4.launches = fused_df_rk4.launches = 0
+    t0 = time.perf_counter()
+    integrator.integrate(0., 100., 0.1, ic=ic, write_steps=100)
+    t, traj = integrator.get_trajectories()
+    torch.cuda.synchronize()
+    out[precision] = {"s": time.perf_counter() - t0,
+                      "rk4_fused": fused_rk4.launches,
+                      "rk4_df_fused": fused_df_rk4.launches}
+    saved[precision] = traj.cpu().numpy()
+    saved[precision + "_t"] = np.asarray(t)
+np.savez(sys.argv[2], **saved)
+out["leaked"] = sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("jax", "qgs_tpu")
+                       and sys.modules[m] is not None)
+out["s"] = time.perf_counter() - t_start
+print(json.dumps(out), flush=True)
+'''
+
+
+def rp_symbolic_params(QgParams):
+    """The RP 2x2 channel on a symbolic basis of
+    ``tests/test_symbolic_export.py:16-22`` (ndim 20)."""
+    pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.1})
+    pars.set_atmospheric_channel_fourier_modes(2, 2, mode='symbolic')
+    pars.ground_params.set_orography(0.2, 1)
+    pars.atemperature_params.set_thetas(0.2, 0)
+    return pars
+
+
+def compat_phase(f, qgt, card, dev):
+    """10. The reference-compatibility surface: (a) a reference-style
+    MAOOAM script through ``qgs_tpu_torch.compat`` in a child process (jax
+    and the JAX package blocked), float64 then twofloat at B = 4096, 1000
+    steps of dt 0.1, a record every 100: exactly one K1 and one K2 launch,
+    its trajectories bit-equal to the same calls made here through
+    ``qgs_tpu_torch`` directly; (b) the port's native C++ oracle built on
+    the card's host (timed), its tendency and Jacobian bit for bit the
+    NumPy backend's on MAOOAM, and K1's float64 trajectories of 4 members
+    over 300 steps against its RK4 (rtol 1e-9, atol 1e-11); (c) the
+    symbolic export of the RP 2x2 symbolic configuration in python,
+    ``exec``'d and evaluated on 256 states against the port's ``f`` and
+    ``Df`` on the card (rtol 1e-8, atol 1e-10).  Checks ``fail`` the run.
+    Returns the numbers and the child's launches, by kernel."""
+    import math
+
+    import torch
+    from qgs_tpu_torch import native
+    from qgs_tpu_torch.functions.symbolic_tendencies import (
+        create_symbolic_tendencies)
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+    from qgs_tpu_torch.integrators.rk import integrate_runge_kutta
+    from qgs_tpu_torch.models.numpy_backend import make_numpy_tendencies
+    from qgs_tpu_torch.models.tendencies import create_tendencies
+    from qgs_tpu_torch.ops import fused_rk4
+    from qgs_tpu_torch.params.params import QgParams
+
+    start = time.perf_counter()
+    out = {"card": card}
+    n = qgt.tensor.shape[0] - 1
+
+    # -- a) the reference-style script in a child process ------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "compat.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", COMPAT_SCRIPT, root,
+                               path], cwd=d, capture_output=True, text=True,
+                              timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the compat script failed ({proc.returncode}):\n"
+                 f"{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        saved = dict(np.load(path))
+    if child["leaked"]:
+        fail(f"the compat script imported {child['leaked']}")
+    if not child["device"].startswith("cuda"):
+        fail(f"the compat script's tendencies are on {child['device']}")
+    launches = {"rk4_fused": child["float64"]["rk4_fused"],
+                "rk4_df_fused": child["twofloat"]["rk4_df_fused"]}
+    expect = {"float64": {"rk4_fused": 1, "rk4_df_fused": 0},
+              "twofloat": {"rk4_fused": 0, "rk4_df_fused": 1}}
+    for precision, counts in expect.items():
+        got = {k: child[precision][k] for k in counts}
+        if got != counts:
+            fail(f"compat script {precision}: launches {got}, expected "
+                 f"{counts}")
+    ic = np.random.default_rng(0).random((4096, n)) * 0.01
+    out["a"] = {"child_s": child_s, "child": child, "bit_equal": {}}
+    for precision in ("float64", "twofloat"):
+        integrator = RungeKuttaIntegrator(precision=precision)
+        integrator.set_func(f)
+        integrator.integrate(0., 100., 0.1, ic=ic, write_steps=100)
+        t, traj = integrator.get_trajectories()
+        traj = traj.cpu().numpy()
+        if traj.shape != (4096, n, 11) or not np.isfinite(traj).all():
+            fail(f"direct {precision} run: shape {traj.shape}, finite "
+                 f"{np.isfinite(traj).all()}")
+        equal = (np.array_equal(saved[precision], traj)
+                 and np.array_equal(saved[precision + "_t"], np.asarray(t)))
+        if not equal:
+            err = float(np.abs(saved[precision] - traj).max())
+            fail(f"compat script {precision}: not bit-equal to the direct "
+                 f"call (max err {err:.3e})")
+        out["a"]["bit_equal"][precision] = True
+    print(f"[10a] compat script (child, jax and qgs_tpu blocked): "
+          f"{child_s:.1f} s in all, on the card after "
+          f"{child['to_card_s']:.1f} s; float64 B=4096 x 1000 steps "
+          f"{child['float64']['s'] * 1e3:.3f} ms, twofloat "
+          f"{child['twofloat']['s'] * 1e3:.3f} ms; launches {launches}; "
+          f"bit-equal to the direct calls; {card}", flush=True)
+
+    # -- b) the native oracle on the card's host ----------------------------
+    if not native.available():
+        fail("no g++ on the card's host for the native oracle")
+    t0 = time.perf_counter()
+    try:
+        native.load_library()
+    except RuntimeError as e:
+        fail(str(e))
+    build_s = time.perf_counter() - t0
+    f_nat, Df_nat = native.make_native_tendencies(qgt.tensor,
+                                                  qgt.jacobian_tensor)
+    f_np, Df_np = make_numpy_tendencies(qgt.tensor, qgt.jacobian_tensor)
+    x = np.random.default_rng(3).random(n) * 0.05
+    if not (np.array_equal(f_nat(0., x), f_np(0., x))
+            and np.array_equal(Df_nat(0., x), Df_np(0., x))):
+        fail("native oracle: tendency or Jacobian not bit-equal to the "
+             "NumPy backend")
+    x4 = np.random.default_rng(13).random((4, n)) * 0.01
+    torch.cuda.synchronize()
+    fused_rk4.launches = 0
+    _, traj4 = integrate_runge_kutta(f.batched, 0., 30., 0.1, x4,
+                                     write_steps=10)
+    torch.cuda.synchronize()
+    k1_oracle = fused_rk4.launches
+    if k1_oracle != 1:
+        fail(f"K1 against the oracle: {k1_oracle} launches, expected 1")
+    rec = np.stack([native.rk4_integrate(qgt.tensor, xi, 0.1, 300,
+                                         write_steps=10)[1].T for xi in x4])
+    err_oracle = check_close("K1 float64, 4 members x 300 steps, vs the "
+                             "native oracle", traj4, torch.as_tensor(rec),
+                             TOL64)
+    out["b"] = {"build_s": build_s, "library": native.library_path().name,
+                "max_abs_err": err_oracle, "k1_launches": k1_oracle}
+    print(f"[10b] native oracle built in {build_s:.2f} s; f/Df bit-equal to "
+          f"the NumPy backend; K1 vs oracle max err {err_oracle:.3e}; "
+          f"{card}", flush=True)
+
+    # -- c) the symbolic export against f and Df on the card ----------------
+    pars = rp_symbolic_params(QgParams)
+    t0 = time.perf_counter()
+    func_str, jac_str = create_symbolic_tendencies(
+        pars, continuation_variables=[], language='python',
+        return_jacobian=True)[:2]
+    export_s = time.perf_counter() - t0
+    ns = {'np': np, 'math': math}
+    exec(func_str, ns)
+    exec(jac_str, ns)
+    fs, Dfs = create_tendencies(pars, device=dev)
+    xs = np.random.default_rng(0).random((256, pars.ndim)) * 0.2
+    xs_dev = torch.as_tensor(xs, device=dev)
+    err_f = check_close("exported python f vs f on the card, 256 states",
+                        fs.batched(0., xs_dev),
+                        torch.as_tensor(np.stack([ns['f'](0., x)
+                                                  for x in xs])),
+                        TOL_SYMBOLIC)
+    err_j = check_close("exported python jac vs Df on the card, 256 states",
+                        Dfs.batched(0., xs_dev),
+                        torch.as_tensor(np.stack([ns['jac'](0., x)
+                                                  for x in xs])),
+                        TOL_SYMBOLIC)
+    out["c"] = {"export_s": export_s, "ndim": pars.ndim,
+                "f_max_abs_err": err_f, "jac_max_abs_err": err_j,
+                "chars": [len(func_str), len(jac_str)]}
+    print(f"[10c] symbolic export (RP 2x2 symbolic, python, with Jacobian) "
+          f"{export_s:.1f} s on the host; exec'd vs the card max err f "
+          f"{err_f:.3e}, Df {err_j:.3e}; {card}", flush=True)
+
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - start
+    print(f"[10] compat phase {out['phase_s']:.1f} s; launches {launches}; "
+          f"{card}", flush=True)
+    return out, launches
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     try:
@@ -1708,6 +1947,9 @@ def main():
     parallel, parallel_launches = parallel_phase(f, Df, ic, main_traj["float64"],
                                                  card, dev)
 
+    # -- 10. the reference-compatibility surface -----------------------------
+    compat, compat_launches = compat_phase(f, qgt, card, dev)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -1717,9 +1959,11 @@ def main():
         "route": "cuda",
         "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
-        "launches": launches["rk4_fused"] + parallel_launches["rk4_fused"],
+        "launches": (launches["rk4_fused"] + parallel_launches["rk4_fused"]
+                     + compat_launches["rk4_fused"]),
         "main_path_launches": launches["rk4_fused"],
         "parallel_launches": parallel_launches["rk4_fused"],
+        "compat_launches": compat_launches["rk4_fused"],
         "flv_launches": flv_launches["float64"]["rk4_fused"],
         "max_abs_err": max(errs64),
         "ms": times["f64"][0],
@@ -1747,9 +1991,11 @@ def main():
         "source": "qgs_tpu_torch/csrc/rk4_df_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:107",
         "launches": (launches["rk4_df_fused"]
-                     + parallel_launches["rk4_df_fused"]),
+                     + parallel_launches["rk4_df_fused"]
+                     + compat_launches["rk4_df_fused"]),
         "main_path_launches": launches["rk4_df_fused"],
         "parallel_launches": parallel_launches["rk4_df_fused"],
+        "compat_launches": compat_launches["rk4_df_fused"],
         "flv_launches": flv_launches["twofloat"]["rk4_df_fused"],
         "max_abs_err": err_df,
         "ms": times["df"][0],
@@ -1772,6 +2018,7 @@ def main():
     print(json.dumps({"diagnostics": diagnostics}), flush=True)
     print(json.dumps({"rank5": rank5}), flush=True)
     print(json.dumps({"tangent": tangent}), flush=True)
+    print(json.dumps({"compat": compat}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,11 @@ tangent-linear system and 2 Benettin windows, then runs the atmospheric
 thermodynamic tendencies, ``QgsModel``, ``TrajectoriesStatistics`` and a
 rank-5 (dynamic-T) model, diagnostics of the MAOOAM trajectory (omega
 included) under the profiler's ``trace``, the integration split over a
-four-entry CPU mesh and the RP driver; no source file of the port imports
-either; and the port builds on the CUDA card unless asked for the CPU."""
+four-entry CPU mesh and the RP driver, the NumPy backend and the native
+oracle against the tendency, the symbolic products and export helpers, and
+a reference-style script through the ``qgs`` alias of ``compat``; no
+source file of the port imports either; and the port builds on the CUDA
+card unless asked for the CPU."""
 
 import os
 import pathlib
@@ -29,6 +32,7 @@ import sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
 sys.modules["qgs_tpu"] = None      # and so does any of the JAX package
 import numpy as np
+import torch
 import qgs_tpu_torch
 from qgs_tpu_torch.host import QgParams
 from qgs_tpu_torch.models.tendencies import create_tendencies
@@ -133,6 +137,37 @@ with tempfile.TemporaryDirectory() as d, \
                        filename=os.path.join(d, "evol_fields.dat"),
                        device="cpu")
     assert np.loadtxt(os.path.join(d, "evol_fields.dat")).shape == (3, 21)
+import shutil
+import sympy
+from qgs_tpu_torch import native
+from qgs_tpu_torch.functions import symbolic_mul, symbolic_tendencies, util
+from qgs_tpu_torch.models import numpy_backend
+from qgs_tpu_torch.tensors.symbolic_qgtensor import SymbolicQgsTensor
+x0 = ic4[0]
+fx0 = f(0., torch.as_tensor(x0))
+fn, Dfn = numpy_backend.make_numpy_tendencies(qgt.tensor, qgt.jacobian_tensor)
+assert np.allclose(fn(0., x0), fx0.numpy(), rtol=1e-12, atol=1e-14)
+if shutil.which("g++"):
+    fc, Dfc = native.make_native_tendencies(qgt.tensor, qgt.jacobian_tensor)
+    assert np.array_equal(fc(0., x0), fn(0., x0))
+    assert np.array_equal(Dfc(0., x0), Dfn(0., x0))
+a, b = sympy.symbols("a b")
+tdic = SymbolicQgsTensor.simplify_dict({(1, 0, 1): a, (1, 1, 0): b})
+prod = symbolic_mul.symbolic_sparse_mult3(tdic, [1, a], [1, b])
+assert list(prod) == [1] and sympy.expand(prod[1] - a * b - b ** 2) == 0
+assert symbolic_tendencies.translate_equations("x**2", "julia") == "x^2"
+assert np.array_equal(util.reverse([1, 2, 3]), [3, 2, 1])
+
+import qgs_tpu_torch.compat
+from qgs.functions.tendencies import create_tendencies as alias_create
+from qgs.integrators.integrator import RungeKuttaIntegrator as AliasRK
+from qgs.params.params import QgParams as AliasParams
+assert alias_create is create_tendencies and AliasRK is RungeKuttaIntegrator
+pa = AliasParams()
+pa.set_atmospheric_channel_fourier_modes(2, 2)
+pa.set_oceanic_basin_fourier_modes(2, 4)
+fa, _ = alias_create(pa, device="cpu")
+assert bool(torch.equal(fa(0., torch.as_tensor(x0)), fx0))
 assert sys.modules["jax"] is None and sys.modules["qgs_tpu"] is None
 print("OK", sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "qgs_tpu")))
