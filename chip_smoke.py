@@ -74,12 +74,18 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    directly; the port's native C++ oracle built on the card's host, bit
    for bit the NumPy backend on MAOOAM, and K1 against it over 300 steps;
    the symbolic python export of the RP 2x2 symbolic configuration against
-   the port's ``f`` and ``Df`` on the card.
+   the port's ``f`` and ``Df`` on the card;
+11. the examples (``qgs_tpu_torch.examples``), all 16 in their catalog's
+   order, each ``main(device="cuda", short=True, plot=False)``, timed,
+   K1's and K2's launches counted (each example must launch the kernels
+   its catalog names, the rank-5 and symbolic ones neither), and each held
+   against the same call on the CPU at its module's tolerances.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
 kernel's numbers, ``{"kernels": [...]}`` (``launches`` those of the main
-paths of phases 4, 9 and 10), the one before that phase 10's numbers,
+paths of phases 4, 9, 10 and 11), the one before that phase 11's numbers,
+``{"examples": {...}}``, the one before that phase 10's,
 ``{"compat": {...}}``, the one before that phase 6's, ``{"tangent":
 {...}}``, the one before that phase 7's, ``{"rank5": {...}}``, the one
 before that phase 8's, ``{"diagnostics": {...}}``, and the one before that
@@ -89,6 +95,7 @@ phase 9's, ``{"parallel": {...}}``.  Run from the repository root:
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -1679,6 +1686,101 @@ def compat_phase(f, qgt, card, dev):
     return out, launches
 
 
+# the kernels each example launches on the card (the catalog of
+# qgs_tpu_torch/examples/__init__.py): each of its set at least once, no
+# other (an empty set: neither; the rank-5 models, the host-only and
+# tendency-call examples)
+EXAMPLE_KERNELS = {
+    "rp_atmosphere": {"rk4_fused"}, "maooam_coupled": {"rk4_fused"},
+    "ground_coupled": {"rk4_fused"},
+    "precision_tiers": {"rk4_fused", "rk4_df_fused"},
+    "external_solvers": {"rk4_fused"}, "lyapunov_exponents": {"rk4_fused"},
+    "clv_walkthrough": {"rk4_fused"}, "ensemble_statistics": {"rk4_fused"},
+    "distributed_ensembles": {"rk4_fused"}, "dynamic_temperature": set(),
+    "t4_radiation": set(), "diagnostics_tour": {"rk4_fused"},
+    "kernel_selection": {"rk4_fused", "rk4_df_fused"},
+    "custom_basis": set(), "symbolic_export": set(),
+    "auto_continuation": set()}
+
+
+def examples_phase(card):
+    """11. The 16 examples of ``qgs_tpu_torch.examples`` in their catalog's
+    order, each ``main(device="cuda", short=True, plot=False)``
+    (``selftest=False`` for ``distributed_ensembles``: phase 9 (e) runs
+    that self-test), timed by the host clock after a synchronise, with K1's
+    and K2's launches counted from 0; each held against the same call with
+    ``device="cpu"`` at its module's ``TOLERANCES`` (``symbolic_export``,
+    host only, has none and is not run twice).  An example whose launches
+    differ from :data:`EXAMPLE_KERNELS`, or that disagrees with the CPU,
+    ``fail``s the run.  Returns each example's numbers and the launches
+    of all of them, by kernel."""
+    import importlib
+
+    import torch
+    from qgs_tpu_torch import examples
+    from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+
+    start = time.perf_counter()
+    out = {}
+    totals = {"rk4_fused": 0, "rk4_df_fused": 0}
+    with tempfile.TemporaryDirectory() as outdir:
+        for name in examples.NAMES:
+            mod = importlib.import_module(f"qgs_tpu_torch.examples.{name}")
+            kw = dict(short=True, plot=False, outdir=outdir)
+            if name == "distributed_ensembles":
+                kw["selftest"] = False
+            torch.cuda.synchronize()
+            fused_rk4.launches = fused_df_rk4.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                got = mod.main(device="cuda", **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {"rk4_fused": fused_rk4.launches,
+                        "rk4_df_fused": fused_df_rk4.launches}
+            for k in totals:
+                totals[k] += launches[k]
+            need = EXAMPLE_KERNELS[name]
+            missed = sorted(k for k in need if launches[k] < 1)
+            extra = sorted(k for k in launches
+                           if launches[k] and k not in need)
+            if missed or extra:
+                fail(f"example {name}: launches {launches}, must launch "
+                     f"{sorted(need) or 'neither kernel'}")
+            t0 = time.perf_counter()
+            checks = {}
+            if mod.TOLERANCES:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    ref = mod.main(device="cpu", **kw)
+                checks = examples.compare(got, ref, mod.TOLERANCES)
+            cpu_secs = time.perf_counter() - t0
+            bad = sorted(k for k, (_, ok) in checks.items() if not ok)
+            gap = max((e for e, _ in checks.values()), default=0.0)
+            # the example's own scalars (errors, counts, rates and seconds
+            # it measured on the card), beside the numbers held above
+            values = {k: v for k, v in got.items() if k not in checks
+                      and isinstance(v, (int, float, dict))}
+            out[name] = {"seconds": secs, "cpu_seconds": cpu_secs,
+                         "launches": launches, "max_abs_err": gap,
+                         "max_abs_err_by_key": {k: e for k, (e, _)
+                                                in checks.items()},
+                         "values": values}
+            print(f"[11] {name}: {secs:.3f} s on the card, launches "
+                  f"{launches}; against the CPU ({cpu_secs:.1f} s) max abs "
+                  f"err {gap:.3e} over {sorted(checks)} "
+                  f"{'MISMATCH ' + str(bad) if bad else 'ok'}; {card}",
+                  flush=True)
+            if bad:
+                fail(f"example {name}: the card disagrees with the CPU on "
+                     f"{bad}")
+    out["launches"] = totals
+    out["phase_s"] = time.perf_counter() - start
+    out["card"] = card
+    print(f"[11] examples phase {out['phase_s']:.1f} s; launches {totals}; "
+          f"{card}", flush=True)
+    return out, totals
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     try:
@@ -1950,6 +2052,9 @@ def main():
     # -- 10. the reference-compatibility surface -----------------------------
     compat, compat_launches = compat_phase(f, qgt, card, dev)
 
+    # -- 11. the examples ----------------------------------------------------
+    examples_out, examples_launches = examples_phase(card)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -1960,10 +2065,12 @@ def main():
         "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
         "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
         "launches": (launches["rk4_fused"] + parallel_launches["rk4_fused"]
-                     + compat_launches["rk4_fused"]),
+                     + compat_launches["rk4_fused"]
+                     + examples_launches["rk4_fused"]),
         "main_path_launches": launches["rk4_fused"],
         "parallel_launches": parallel_launches["rk4_fused"],
         "compat_launches": compat_launches["rk4_fused"],
+        "examples_launches": examples_launches["rk4_fused"],
         "flv_launches": flv_launches["float64"]["rk4_fused"],
         "max_abs_err": max(errs64),
         "ms": times["f64"][0],
@@ -1992,10 +2099,12 @@ def main():
         "replaces": "qgs_tpu/ops/pallas_kernels.py:107",
         "launches": (launches["rk4_df_fused"]
                      + parallel_launches["rk4_df_fused"]
-                     + compat_launches["rk4_df_fused"]),
+                     + compat_launches["rk4_df_fused"]
+                     + examples_launches["rk4_df_fused"]),
         "main_path_launches": launches["rk4_df_fused"],
         "parallel_launches": parallel_launches["rk4_df_fused"],
         "compat_launches": compat_launches["rk4_df_fused"],
+        "examples_launches": examples_launches["rk4_df_fused"],
         "flv_launches": flv_launches["twofloat"]["rk4_df_fused"],
         "max_abs_err": err_df,
         "ms": times["df"][0],
@@ -2019,6 +2128,7 @@ def main():
     print(json.dumps({"rank5": rank5}), flush=True)
     print(json.dumps({"tangent": tangent}), flush=True)
     print(json.dumps({"compat": compat}), flush=True)
+    print(json.dumps({"examples": examples_out}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,6 +12,13 @@ rank 3 (``QgsTensor``) and rank 5 (``QgsTensorDynamicT``, ``QgsTensorT4``):
 
 over the state padded with the dummy constant, ``xx = [1, x]``.
 
+A module called with tensors returns tensors on its device.  Called with
+NumPy states (or any other array-likes), as an external ODE solver calls
+``f(t, x)``, it converts them once to its dtype and device and returns
+NumPy arrays: the reference's contract, which ``np.asarray`` and
+``scipy.integrate.solve_ivp`` consume whatever the device
+(:func:`numpy_call`).
+
 There is one implementation, a gather-multiply-sum over a padded layout
 (pad value 0, pad index 0, and ``xx[0] == 1``, so a pad adds exactly zero).
 The sum order is fixed by the layout, and no ``index_add_`` atomics run on
@@ -151,6 +158,35 @@ def padded_layout(out_idx, n_out, cols, vals, rank):
     return tuple(two_level(out_idx, n_out, cols, vals))
 
 
+def _tensors(x, dtype, device):
+    """An array-like state, or a tuple of them, as tensors of ``dtype`` on
+    ``device``."""
+    if isinstance(x, tuple):
+        return tuple(_tensors(p, dtype, device) for p in x)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def is_tensor_state(*xs):
+    """Whether every state of ``xs`` (a tensor, or a tuple of them) is a
+    tensor."""
+    return all(isinstance(p, torch.Tensor)
+               for x in xs for p in (x if isinstance(x, tuple) else (x,)))
+
+
+def to_numpy(out):
+    """A tensor, or a tuple of them, as NumPy arrays on the host."""
+    if isinstance(out, tuple):
+        return tuple(to_numpy(p) for p in out)
+    return out.detach().cpu().numpy()
+
+
+def numpy_call(fn, xs, dtype, device):
+    """``fn(*xs)`` for states given as NumPy arrays (or other array-likes,
+    or tuples of them): each converted once to ``dtype`` on ``device``, the
+    result returned as NumPy."""
+    return to_numpy(fn(*(_tensors(x, dtype, device) for x in xs)))
+
+
 def _with_dummy(x):
     """Prepend the dummy constant 1 along the last axis."""
     return torch.cat([torch.ones_like(x[..., :1]), x], dim=-1)
@@ -229,7 +265,11 @@ class _GatherContraction(nn.Module):
 
     def forward(self, t, x):
         """``x``: (B, n) -> (B, *out_shape).  ``t`` is unused (the model is
-        autonomous); it is kept for the ``f(t, x)`` calling convention."""
+        autonomous); it is kept for the ``f(t, x)`` calling convention.  A
+        ``x`` that is not a tensor gives NumPy (:func:`numpy_call`)."""
+        if not isinstance(x, torch.Tensor):
+            return numpy_call(lambda x: self.contract(_with_dummy(x)), (x,),
+                              self.dtype, self.device)
         return self.contract(_with_dummy(x))
 
 
@@ -329,6 +369,8 @@ class Tangent(nn.Module):
         return self._vals().device
 
     def forward(self, xx, dm):
+        if not is_tensor_state(xx, dm):
+            return numpy_call(self.forward, (xx, dm), self.dtype, self.device)
         if self.coef is not None:
             return self.coef.contract(xx) @ dm
         coef = self.vals * xx[:, self.idx_k]                     # (B, n, R)
@@ -374,13 +416,17 @@ def make_tendency_fns(tensor, jtensor, mode="auto", dtype=torch.float64,
 
 class SingleState(nn.Module):
     """A batched function wrapped for single states (reference API shape):
-    ``f(t, x)``: (n,) -> (n,).  The batched function is ``.batched``."""
+    ``f(t, x)``: (n,) -> (n,).  The batched function is ``.batched``; a
+    ``x`` that is not a tensor reaches it as a NumPy array, and so gives
+    NumPy."""
 
     def __init__(self, batched):
         super().__init__()
         self.batched = batched
 
     def forward(self, t, x):
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
         return self.batched(t, x[None, :])[0]
 
 

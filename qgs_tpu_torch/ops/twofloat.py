@@ -15,7 +15,9 @@ about 48 bits of mantissa.
 * :class:`DfTendency` is the double-float tendency contraction over the
   layout of :mod:`qgs_tpu_torch.ops.contraction` (row-padded for rank 3,
   two-level for rank 5); every op is renormalized (the JAX package's
-  ``accumulate='strict'``).
+  ``accumulate='strict'``).  Given NumPy pairs, it and :class:`DfTangent`
+  convert them once to float32 on their device and return NumPy pairs
+  (:func:`~qgs_tpu_torch.ops.contraction.numpy_call`).
 * :func:`make_df_rk4_step_dynamic` and :func:`make_df_rk_step_dynamic` are
   the double-float RK steps ``step(y, tt, dt) -> y_new`` over a function
   ``f(y_hi, y_lo) -> (f_hi, f_lo)``.  The fused kernel ``csrc/rk4_df_fused.cu``
@@ -41,7 +43,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from qgs_tpu_torch.ops.contraction import (jacobian_layout, padded_layout,
+from qgs_tpu_torch.ops.contraction import (is_tensor_state, jacobian_layout,
+                                           numpy_call, padded_layout,
                                            tangent_layout, with_zero)
 
 
@@ -229,6 +232,9 @@ class DfTendency(_DfContraction):
         self.shape = tuple(int(s) for s in shape)
 
     def forward(self, y_hi, y_lo):
+        if not is_tensor_state(y_hi, y_lo):
+            return numpy_call(self.forward, (y_hi, y_lo), torch.float32,
+                              self.device)
         return self.contract(pad_dummy((y_hi, y_lo)))
 
 
@@ -283,6 +289,9 @@ class DfTangent(nn.Module):
                          self.device)
 
     def forward(self, xx, dm):
+        if not is_tensor_state(xx, dm):
+            return numpy_call(self.forward, (xx, dm), torch.float32,
+                              self.device)
         if self.coef is not None:
             c = self.coef.contract(xx)                          # (B, n, n)
             t = df_mul(tuple(p[..., None] for p in c),

@@ -8,8 +8,11 @@ included) under the profiler's ``trace``, the integration split over a
 four-entry CPU mesh and the RP driver, the NumPy backend and the native
 oracle against the tendency, the symbolic products and export helpers, and
 a reference-style script through the ``qgs`` alias of ``compat``; no
-source file of the port imports either; and the port builds on the CUDA
-card unless asked for the CPU."""
+source file of the port imports either; every module of
+``qgs_tpu_torch.examples`` imports with ``jax``, ``qgs_tpu`` and matplotlib
+blocked (the card's host has no matplotlib), runs there with
+``plot=False`` and raises ``ImportError`` with ``plot=True``; and the port
+builds on the CUDA card unless asked for the CPU."""
 
 import os
 import pathlib
@@ -180,6 +183,37 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK ['jax', 'qgs_tpu']", proc.stdout
+
+
+EXAMPLES_SCRIPT = r"""
+import importlib
+import sys
+for name in ("jax", "qgs_tpu", "matplotlib"):
+    sys.modules[name] = None       # any import of these now raises
+from qgs_tpu_torch import examples
+mods = [importlib.import_module(f"qgs_tpu_torch.examples.{name}")
+        for name in examples.NAMES]
+assert len(mods) == 16 and all(callable(m.main) for m in mods)
+from qgs_tpu_torch.examples import kernel_selection, rp_atmosphere
+out = kernel_selection.main(device="cpu", short=True, plot=False)
+assert set(out["deviations"].values()) == {0.0}
+try:
+    rp_atmosphere.main(device="cpu", short=True, plot=True)
+except ImportError:
+    pass
+else:
+    raise AssertionError("plot=True without matplotlib did not raise")
+print("OK", sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "qgs_tpu", "matplotlib")))
+"""
+
+
+def test_examples_run_with_jax_and_matplotlib_blocked():
+    proc = subprocess.run([sys.executable, "-c", EXAMPLES_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == \
+        "OK ['jax', 'matplotlib', 'qgs_tpu']", proc.stdout
 
 
 def test_no_port_source_imports_jax():
