@@ -79,12 +79,21 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    order, each ``main(device="cuda", short=True, plot=False)``, timed,
    K1's and K2's launches counted (each example must launch the kernels
    its catalog names, the rank-5 and symbolic ones neither), and each held
-   against the same call on the CPU at its module's tolerances.
+   against the same call on the CPU at its module's tolerances;
+12. models past one block's shared memory (MAOOAM 4x4/4x4, ndim 104, and
+   6x6/6x6, ndim 228): the Python twins of the kernels' shared-memory
+   formulas against the compiled ones and the card's opt-in limit; ndim
+   104 in float64 and float32 through K1 (one launch each) against the
+   plain float64 version, in twofloat and ndim 228 in float64 through the
+   plain step loop (no launch), each against the CPU on 8 members and
+   timed; K1 at ndim 104 against its plain version at B = 1, 31, 4097 and
+   timed at B = 4096; direct launches of layouts too large raising.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
 kernel's numbers, ``{"kernels": [...]}`` (``launches`` those of the main
-paths of phases 4, 9, 10 and 11), the one before that phase 11's numbers,
+paths of phases 4, 9, 10, 11 and 12), the one before that phase 12's
+numbers, ``{"large_models": {...}}``, the one before that phase 11's,
 ``{"examples": {...}}``, the one before that phase 10's,
 ``{"compat": {...}}``, the one before that phase 6's, ``{"tangent":
 {...}}``, the one before that phase 7's, ``{"rank5": {...}}``, the one
@@ -1781,6 +1790,282 @@ def examples_phase(card):
     return out, totals
 
 
+# MAOOAM widths past one block's shared memory (the resolution sweep's
+# configurations, ``benchmarks/resolution_sweep.py:60-68``): ndim -> the
+# atmosphere's and the ocean's blocks
+LARGE_BLOCKS = {36: ((2, 2), (2, 4)), 104: ((4, 4), (4, 4)),
+                228: ((6, 6), (6, 6))}
+
+
+def resolution_params(QgParams, ndim):
+    """MAOOAM with ``qgs_maooam.py``'s settings at a wider truncation."""
+    pars = QgParams()
+    pars.set_atmospheric_channel_fourier_modes(*LARGE_BLOCKS[ndim][0])
+    pars.set_oceanic_basin_fourier_modes(*LARGE_BLOCKS[ndim][1])
+    pars.set_params({'kd': 0.0290, 'kdp': 0.0290, 'n': 1.5, 'r': 1.e-7,
+                     'h': 136.5, 'd': 1.1e-7})
+    pars.atemperature_params.set_params({'eps': 0.7, 'T0': 289.3,
+                                         'hlambda': 15.06})
+    pars.gotemperature_params.set_params({'gamma': 5.6e8, 'T0': 301.46})
+    pars.atemperature_params.set_insolation(103.3333, 0)
+    pars.gotemperature_params.set_insolation(310., 0)
+    return pars
+
+
+def large_models_phase(card, dev):
+    """12. Models past one block's shared memory: (a) the Python twins of
+    the launchers' shared-memory formulas (``fused_rk4.smem_bytes``,
+    ``fused_df_rk4.df_smem_bytes``) against the compiled ones, at ndim 36,
+    104 and 228 for K1 in float64 and float32 and for K2, and the route
+    each model takes under the card's opt-in limit; (b) the 4x4/4x4
+    (ndim 104) paths through ``RungeKuttaIntegrator.integrate``: float64
+    (B = 4096, 1000 steps, one K1 launch) and float32 (B = 4096, 100
+    steps, one K1 launch), each held in full against the plain float64
+    version on the card, and twofloat (B = 1024, 200 steps, the plain
+    double-float loop, no K2 launch); (c) 6x6/6x6 (ndim 228) float64 (B =
+    1024, 200 steps, the plain loop, no K1 launch); each run held against
+    the CPU on its first 8 members (``TOL64``, ``TOL32`` for float32) and
+    timed by the host clock; (d) K1 at ndim 104 against ``group_tendency``,
+    its plain version in its own summation order, at B = 1, 31 and 4097;
+    (e) the times of K1 alone (float64 and float32) and of its plain
+    version at B = 4096 x 1000 steps, with K1's bound; the float32
+    kernel's gap to plain float64 every 100 of 1000 steps; the host time
+    of the size check on MAOOAM-36 against ``group_layout``'s; (f) direct
+    launches of K2 at ndim 104 and of K1 at ndim 228 raising.  Checks
+    ``fail`` the run.  Returns the numbers and the launches of the paths,
+    by kernel."""
+    import torch
+    from qgs_tpu_torch.host import QgParams
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+    from qgs_tpu_torch.integrators.rk import (fused_route, rk4_tableau,
+                                              time_grid)
+    from qgs_tpu_torch.models.tendencies import create_tendencies
+    from qgs_tpu_torch.ops import _build, fused_df_rk4, fused_rk4
+    from qgs_tpu_torch.ops.twofloat import DfTendency, df_from_f64
+
+    start = time.perf_counter()
+    lib = _build.load_library()
+    limit = _build.max_smem_optin(dev)
+    G = fused_rk4.DEFAULT_GROUPS
+    out = {"card": card, "smem_optin_bytes": limit, "twins": {}}
+    print(f"[12] the card's opt-in shared memory a block: {limit} bytes; "
+          f"{card}", flush=True)
+
+    # -- a) the twins against the compiled formulas, and the routes --------
+    models = {}
+    for ndim in LARGE_BLOCKS:
+        pars = resolution_params(QgParams, ndim)
+        f, _ = create_tendencies(pars, device=dev)
+        f_cpu, _ = create_tendencies(pars, device="cpu")
+        models[ndim] = (pars, f, f_cpu)
+        fb = f.batched
+        n1 = fb.shape[0]
+        width = fused_rk4.row_groups(fb.coords, n1, G).width
+        twins = {
+            "rk4_fused_f64": (fused_rk4.smem_bytes(n1, G, width,
+                                                   torch.float64),
+                              lib.qgs_rk4_fused_smem_bytes(n1, G, width, 1)),
+            "rk4_fused_f32": (fused_rk4.smem_bytes(n1, G, width,
+                                                   torch.float32),
+                              lib.qgs_rk4_fused_smem_bytes(n1, G, width, 0)),
+            "rk4_df_fused": (fused_df_rk4.df_smem_bytes(n1, G, width),
+                             lib.qgs_rk4_df_fused_smem_bytes(n1, G, width))}
+        for name, (py, c) in twins.items():
+            if py != c:
+                fail(f"ndim {ndim} {name}: the Python twin gives {py} bytes, "
+                     f"the compiled formula {c}")
+        y = torch.zeros((1, ndim), dtype=torch.float64, device=dev)
+        routes = {"rk4_fused_f64": fused_route(fb, y, rk4_tableau()),
+                  "rk4_df_fused": fused_route(
+                      DfTendency(fb.coords, fb.data, fb.shape, device=dev),
+                      df_from_f64(y), rk4_tableau())}
+        for name, fused in routes.items():
+            if fused != (twins[name][0] <= limit):
+                fail(f"ndim {ndim}: {name} routed {'to' if fused else 'past'}"
+                     f" the kernel for {twins[name][0]} bytes of {limit}")
+        out["twins"][ndim] = {"nnz": len(fb.data), "width": width,
+                              "bytes": {k: v[0] for k, v in twins.items()},
+                              "kernel_route": routes}
+        print(f"[12] ndim {ndim}, nnz {len(fb.data)}, width {width}: bytes "
+              f"{ {k: v[0] for k, v in twins.items()} } equal to the "
+              f"compiled formulas; kernel route {routes}", flush=True)
+
+    def counts():
+        return {"rk4_fused": fused_rk4.launches,
+                "rk4_df_fused": fused_df_rk4.launches}
+
+    # -- b, c) the paths through the integrator -----------------------------
+    f64_104 = models[104][1]
+    f32_104, _ = create_tendencies(models[104][0], dtype=torch.float32,
+                                   device=dev)
+    # name: (ndim, tendency, precision, B, t, write_steps, tolerance, the
+    # launches expected)
+    runs = {
+        "ndim104_float64": (104, f64_104, "float64", 4096, 100., 100, TOL64,
+                            {"rk4_fused": 1, "rk4_df_fused": 0}),
+        "ndim104_float32": (104, f32_104, "float64", 4096, 10., 10, TOL32,
+                            {"rk4_fused": 1, "rk4_df_fused": 0}),
+        "ndim104_twofloat": (104, f64_104, "twofloat", 1024, 20., 20, TOL64,
+                             {"rk4_fused": 0, "rk4_df_fused": 0}),
+        "ndim228_float64": (228, models[228][1], "float64", 1024, 20., 20,
+                            TOL64, {"rk4_fused": 0, "rk4_df_fused": 0})}
+    launches = {"rk4_fused": 0, "rk4_df_fused": 0}
+    for name, (ndim, f, precision, B, t_end, w, tol, expect) in runs.items():
+        ic = np.random.default_rng(ndim).random((B, ndim)) * 0.01
+        integrator = RungeKuttaIntegrator(precision=precision)
+        integrator.set_func(f)
+        torch.cuda.synchronize()
+        fused_rk4.launches = fused_df_rk4.launches = 0
+        t0 = time.perf_counter()
+        integrator.integrate(0., t_end, 0.1, ic=ic, write_steps=w)
+        t, traj = integrator.get_trajectories()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        for k in launches:
+            launches[k] += got[k]
+        if got != expect:
+            fail(f"{name}: launches {got}, expected {expect}")
+        steps = int(round(t_end / 0.1))
+        if (tuple(traj.shape) != (B, ndim, steps // w + 1)
+                or not torch.isfinite(traj).all()):
+            fail(f"{name}: trajectory shape {tuple(traj.shape)}, finite "
+                 f"{bool(torch.isfinite(traj).all())}")
+        res = out[name] = {"B": B, "steps": steps, "seconds": secs,
+                           "traj_steps_per_s": B * steps / secs,
+                           "launches": got}
+        if name.endswith(("float64", "float32")) and ndim == 104:
+            # the plain float64 version at the same shapes, in full
+            dts = torch.as_tensor(np.diff(time_grid(0., t_end, 0.1)),
+                                  device=dev)
+            y0 = torch.as_tensor(ic, device=dev)
+            _, rr = fused_rk4.fused_rk4_reference(f64_104.batched, y0, dts, w)
+            ref = torch.movedim(torch.cat([y0[None], rr]), 0, -1)
+            res["max_abs_err_vs_plain_f64"] = check_close(
+                f"[12] {name} B={B} {steps} steps, all records, vs plain f64",
+                traj, ref, tol)
+            if name == "ndim104_float64":
+                plain64 = (y0, dts, rr)
+        # the CPU's run of the first 8 members
+        f_cpu = models[ndim][2]
+        if name.endswith("float32"):
+            f_cpu, _ = create_tendencies(models[104][0], dtype=torch.float32,
+                                         device="cpu")
+        cpu = RungeKuttaIntegrator(precision=precision)
+        cpu.set_func(f_cpu)
+        cpu.integrate(0., t_end, 0.1, ic=ic[:8], write_steps=w)
+        t_cpu, traj_cpu = cpu.get_trajectories()
+        if not np.array_equal(np.asarray(t), np.asarray(t_cpu)):
+            fail(f"{name}: record times differ from the CPU's")
+        res["max_abs_err_vs_cpu"] = check_close(
+            f"[12] {name} members 0-7 vs the CPU", traj[:8], traj_cpu, tol)
+        print(f"[12] {name}: integrate B={B} x {steps} steps in "
+              f"{secs * 1e3:.3f} ms ({res['traj_steps_per_s']:.4g} "
+              f"traj-steps/s), launches {got}; {card}", flush=True)
+
+    # -- d) K1 at ndim 104 against its plain version in its order ------------
+    f104 = f64_104.batched
+    layout = fused_rk4.group_layout(f104.coords, f104.data, f104.shape, G)
+    dts = torch.as_tensor(np.diff(time_grid(0., 30.05, 0.1)), device=dev)
+    dts100 = dts[:100].contiguous()
+    errs, errs32 = [], []
+
+    def in_order(t, x):
+        return fused_rk4.group_tendency(layout, x)
+
+    for B in (1, 31, 4097):
+        yg = torch.as_tensor(np.random.default_rng(B).random((B, 104)) * 0.01,
+                             device=dev)
+        yr, rr = fused_rk4.fused_rk4_reference(in_order, yg, dts, 7)
+        yr100, _ = fused_rk4.fused_rk4_reference(in_order, yg, dts100)
+        yk, rk = fused_rk4.fused_rk4(f104, yg, dts, 7)
+        errs.append(check_close(f"[12] K1 f64 ndim 104 B={B} 301 steps "
+                                "final vs group_tendency", yk, yr, TOL64))
+        errs.append(check_close(f"[12] K1 f64 ndim 104 B={B} records every "
+                                "7 vs group_tendency", rk, rr, TOL64))
+        yk32, _ = fused_rk4.fused_rk4(f32_104.batched, yg.float(), dts100)
+        errs32.append(check_close(f"[12] K1 f32 ndim 104 B={B} 100 steps "
+                                  "vs f64 group_tendency", yk32, yr100,
+                                  TOL32))
+    out["k1_max_abs_err"] = max(errs)
+    out["k1_f32_max_abs_err"] = max(errs32)
+
+    # -- e) K1 alone and its plain version at B = 4096 x 1000 steps --------
+    B, steps = 4096, 1000
+    yb = torch.as_tensor(np.random.default_rng(2).random((B, 104)) * 0.01,
+                         device=dev)
+    dts_b = torch.full((steps,), 0.1, dtype=torch.float64, device=dev)
+    k64 = [cuda_ms(lambda: fused_rk4.fused_rk4(f104, yb, dts_b))
+           for _ in range(2)]
+    yb32 = yb.float()
+    k32 = [cuda_ms(lambda: fused_rk4.fused_rk4(f32_104.batched, yb32, dts_b))
+           for _ in range(2)]
+    plain = cuda_ms(lambda: fused_rk4.fused_rk4_reference(f104, yb, dts_b))
+    b64 = bound(*rk4_work(B, 104, f104.coords, steps, 8), PEAK_FLOPS["f64"])
+    b32 = bound(*rk4_work(B, 104, f104.coords, steps, 4), PEAK_FLOPS["f32"])
+    out["k1_ndim104"] = {
+        "shape": f"B={B} n=104 steps={steps}, G={G}",
+        "ms": min(k64), "runs_ms": k64, "f32_ms": min(k32), "f32_runs_ms": k32,
+        "plain_ms": plain, "bound_ms": b64[0], "bound_by": b64[1],
+        "share_of_bound": b64[0] / min(k64), "f32_bound_ms": b32[0],
+        "f32_share_of_bound": b32[0] / min(k32)}
+    print(f"[12] K1 ndim 104 B={B} {steps} steps: f64 {min(k64):.3f} ms "
+          f"(runs {k64[0]:.3f}/{k64[1]:.3f}), f32 {min(k32):.3f} ms, plain "
+          f"f64 {plain:.3f} ms; bound f64 {b64[0]:.3f} ms ({b64[1]}), share "
+          f"{b64[0] / min(k64):.4f}, f32 {b32[0]:.3f} ms, share "
+          f"{b32[0] / min(k32):.4f}; {card}", flush=True)
+
+    # the float32 kernel's gap to float64 along 1000 steps at ndim 104 (the
+    # float64 path's start and plain records; held at TOL32 over 100 steps
+    # above, reported past them)
+    y0, dts, rr = plain64
+    _, r32 = fused_rk4.fused_rk4(f32_104.batched, y0.float(), dts, 100)
+    growth = [float((a.double() - b).abs().max()) for a, b in zip(r32, rr)]
+    out["k1_f32_gap_every_100_steps"] = growth
+    print(f"[12] K1 f32 ndim 104 B={y0.shape[0]}: max gap to plain f64 every "
+          f"100 steps {', '.join(f'{g:.3e}' for g in growth)}; {card}",
+          flush=True)
+
+    # the route's host time on MAOOAM-36 (one size check a call), against
+    # the layout that each launch builds
+    f36 = models[36][1].batched
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        fused_rk4.fits(f36, torch.float64, dev)
+    fits_us = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fused_rk4.group_layout(f36.coords, f36.data, f36.shape, G)
+    layout_us = (time.perf_counter() - t0) * 1e4
+    out["host_us"] = {"fits_ndim36": fits_us, "group_layout_ndim36": layout_us}
+    print(f"[12] host time a call on ndim 36: fits {fits_us:.1f} us, "
+          f"group_layout {layout_us:.1f} us; {card}", flush=True)
+
+    # -- f) direct launches of layouts that do not fit raise ----------------
+    before = counts()
+    fdf = DfTendency(f104.coords, f104.data, f104.shape, device=dev)
+    y = df_from_f64(yb[:32].contiguous())
+    f228 = models[228][1].batched
+    y228 = torch.zeros((32, 228), dtype=torch.float64, device=dev)
+    for name, call in (("K2 ndim 104", lambda: fused_df_rk4.fused_df_rk4(
+                            fdf, *y, dts_b[:4])),
+                       ("K1 f64 ndim 228", lambda: fused_rk4.fused_rk4(
+                            f228, y228, dts_b[:4]))):
+        try:
+            call()
+        except RuntimeError as err:
+            print(f"[12] direct {name} raised as it must: {err}", flush=True)
+        else:
+            fail(f"a direct {name} launch did not raise")
+    if counts() != before:
+        fail("a refused launch was counted")
+    out["phase_s"] = time.perf_counter() - start
+    out["launches"] = launches
+    print(f"[12] large models phase {out['phase_s']:.1f} s; launches "
+          f"{launches}; {card}", flush=True)
+    return out, launches
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     try:
@@ -2055,6 +2340,9 @@ def main():
     # -- 11. the examples ----------------------------------------------------
     examples_out, examples_launches = examples_phase(card)
 
+    # -- 12. models past one block's shared memory -------------------------
+    large, large_launches = large_models_phase(card, dev)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -2066,11 +2354,14 @@ def main():
         "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
         "launches": (launches["rk4_fused"] + parallel_launches["rk4_fused"]
                      + compat_launches["rk4_fused"]
-                     + examples_launches["rk4_fused"]),
+                     + examples_launches["rk4_fused"]
+                     + large_launches["rk4_fused"]),
         "main_path_launches": launches["rk4_fused"],
         "parallel_launches": parallel_launches["rk4_fused"],
         "compat_launches": compat_launches["rk4_fused"],
         "examples_launches": examples_launches["rk4_fused"],
+        "large_models_launches": large_launches["rk4_fused"],
+        "ndim104": large["k1_ndim104"],
         "flv_launches": flv_launches["float64"]["rk4_fused"],
         "max_abs_err": max(errs64),
         "ms": times["f64"][0],
@@ -2100,11 +2391,13 @@ def main():
         "launches": (launches["rk4_df_fused"]
                      + parallel_launches["rk4_df_fused"]
                      + compat_launches["rk4_df_fused"]
-                     + examples_launches["rk4_df_fused"]),
+                     + examples_launches["rk4_df_fused"]
+                     + large_launches["rk4_df_fused"]),
         "main_path_launches": launches["rk4_df_fused"],
         "parallel_launches": parallel_launches["rk4_df_fused"],
         "compat_launches": compat_launches["rk4_df_fused"],
         "examples_launches": examples_launches["rk4_df_fused"],
+        "large_models_launches": large_launches["rk4_df_fused"],
         "flv_launches": flv_launches["twofloat"]["rk4_df_fused"],
         "max_abs_err": err_df,
         "ms": times["df"][0],
@@ -2129,6 +2422,7 @@ def main():
     print(json.dumps({"tangent": tangent}), flush=True)
     print(json.dumps({"compat": compat}), flush=True)
     print(json.dumps({"examples": examples_out}), flush=True)
+    print(json.dumps({"large_models": large}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

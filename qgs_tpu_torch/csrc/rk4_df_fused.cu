@@ -371,4 +371,10 @@ int qgs_rk4_df_fused(const int* jk, const int* ctl, const float* vhi,
   return (int)cudaGetLastError();
 }
 
+// The shared memory a launch of the kernel needs (the wrapper's twin of
+// this formula decides the route before any launch).
+long long qgs_rk4_df_fused_smem_bytes(int n1, int groups, int width) {
+  return (long long)df_smem_bytes(n1, groups, width);
+}
+
 }  // extern "C"

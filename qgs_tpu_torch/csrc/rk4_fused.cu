@@ -266,4 +266,21 @@ const char* qgs_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The shared memory a launch of the kernel needs (the wrapper's twin of
+// this formula decides the route before any launch).
+long long qgs_rk4_fused_smem_bytes(int n1, int groups, int width,
+                                   int is_double) {
+  return (long long)(is_double ? smem_bytes<double>(n1, groups, width)
+                               : smem_bytes<float>(n1, groups, width));
+}
+
+// The opt-in shared memory of one block on `device`, the limit both
+// launchers hold their layouts to; minus the CUDA error on failure.
+int qgs_max_smem_optin(int device) {
+  int max_smem = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err == cudaSuccess ? max_smem : -(int)err;
+}
+
 }  // extern "C"

@@ -17,12 +17,15 @@ batch of states (B, ndim), in the tendency's dtype
 * Routing: classical RK4 of a rank-3
   :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a CUDA state runs the
   whole loop in the fused kernel
-  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`).  Every other case (the CPU, other tableaux, rank-5 tensors, tendency
-  functions that carry no tensor) runs the step loop with plain tensor
-  operations, which the kernel does not cover.  Likewise classical RK4 of a
-  rank-3 :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA state
-  runs in the fused double-float kernel
-  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`) (:func:`fused_route`).
+  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`) when the kernel's layout
+  of the tensor fits one block's shared memory on that card.  Every other
+  case (the CPU, other tableaux, rank-5 tensors, tendency functions that
+  carry no tensor, layouts too large for the card) runs the step loop with
+  plain tensor operations.  Likewise classical RK4 of a rank-3
+  :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA state runs in
+  the fused double-float kernel
+  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`) when its layout
+  fits (:func:`fused_route`).
 * The coupled (trajectory, tangent) system: :func:`make_tgls_step` and
   :func:`integrate_runge_kutta_tgls` (the tangent through the materialized
   Jacobian, or a direct contraction), :func:`integrate_runge_kutta_tgls_df`
@@ -241,11 +244,16 @@ def fused_route(f, y, tableau):
     RK4 of a rank-3 :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a
     CUDA state, or of a rank-3
     :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair (the
-    kernels take rank 3 only)."""
+    kernels take rank 3 only), whose kernel layout fits one block's
+    shared memory on that card (:func:`~qgs_tpu_torch.ops.fused_rk4.fits`,
+    :func:`~qgs_tpu_torch.ops.fused_df_rk4.df_fits`).  A larger model
+    takes the plain step loop, as the JAX package's integrator takes for
+    every model."""
     y0 = y[0] if isinstance(y, tuple) else y
-    kind = DfTendency if isinstance(y, tuple) else Tendency
+    kind, fits = ((DfTendency, _fused_df.df_fits) if isinstance(y, tuple)
+                  else (Tendency, _fused.fits))
     return (_is_rk4(*tableau) and isinstance(f, kind) and len(f.shape) == 3
-            and y0.is_cuda)
+            and y0.is_cuda and fits(f, y0.dtype, y0.device))
 
 
 def _stack(recs):

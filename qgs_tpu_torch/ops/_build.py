@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 build_log = ""          # nvcc's output of the last build in this process
+_smem_optin = {}        # card index -> its opt-in shared memory a block
 
 
 def _nvcc():
@@ -55,6 +56,12 @@ def _declare(lib):
     lib.qgs_rk4_df_fused.restype = i32
     lib.qgs_cuda_error_string.argtypes = [i32]
     lib.qgs_cuda_error_string.restype = ctypes.c_char_p
+    lib.qgs_rk4_fused_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.qgs_rk4_fused_smem_bytes.restype = ctypes.c_longlong
+    lib.qgs_rk4_df_fused_smem_bytes.argtypes = [i32, i32, i32]
+    lib.qgs_rk4_df_fused_smem_bytes.restype = ctypes.c_longlong
+    lib.qgs_max_smem_optin.argtypes = [i32]
+    lib.qgs_max_smem_optin.restype = i32
     return lib
 
 
@@ -108,3 +115,24 @@ def _compile_and_link(srcs, objs, so):
 
 def error_string(err):
     return load_library().qgs_cuda_error_string(err).decode()
+
+
+def max_smem_optin(device):
+    """The opt-in shared memory of one block (bytes) on the CUDA ``device``,
+    read once a card through the library the launchers are in, from the
+    attribute they check (``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{device} has no shared-memory limit: the kernels "
+                         "run on CUDA cards")
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index not in _smem_optin:
+        got = load_library().qgs_max_smem_optin(index)
+        if got < 0:
+            raise RuntimeError(f"cannot read cuda:{index}'s shared memory: "
+                               f"CUDA error {-got} ({error_string(-got)})")
+        _smem_optin[index] = got
+    return _smem_optin[index]

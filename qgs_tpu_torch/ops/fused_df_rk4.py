@@ -20,6 +20,9 @@ of size ``dts[s]``, and records the state every ``write_every`` steps.
   plain contraction :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`.
 * :func:`df_group_tendency` evaluates the double-float tendency through
   that layout in plain PyTorch, in the kernel's summation order.
+* :func:`df_fits` says, before any launch, whether the kernel's layout of
+  a tendency fits one block's opt-in shared memory
+  (:func:`df_smem_bytes`, the launcher's own formula).
 """
 
 from __future__ import annotations
@@ -28,13 +31,43 @@ import numpy as np
 import torch
 
 from qgs_tpu_torch.ops import _build
-from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, DEFAULT_GROUPS, GROUPS, LAST,
-                                         check_steps, group_layout,
-                                         raise_on_error, start_run)
+from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, DEFAULT_GROUPS, GROUPS, LANES,
+                                         LAST, check_steps, group_layout,
+                                         raise_on_error, row_groups,
+                                         start_run)
 from qgs_tpu_torch.ops.twofloat import (df_add, df_mul,
                                         make_df_rk4_step_dynamic, split_values)
 
 launches = 0             # kernel launches in this process (plain runs excluded)
+
+CHUNK_BYTES = 48         # a chunk of two entries in shared memory (Chunk)
+
+
+def df_smem_bytes(n1, groups, width):
+    """Shared memory of one block of the kernel for a layout of ``groups``
+    tables of ``width`` records (``width // CHUNK`` chunks) over a tensor
+    of first dimension ``n1``: the chunks, then five state rows of ``n1``
+    or ``n`` (hi, lo) lanes (``df_smem_bytes`` of ``csrc/rk4_df_fused.cu``,
+    which ``chip_smoke.py`` holds this against)."""
+    n1 = int(n1)
+    return (CHUNK_BYTES * groups * (width // CHUNK)
+            + 8 * (3 * (n1 - 1) + 2 * n1) * LANES)
+
+
+def df_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+    """Whether the kernel can run the rank-3 tendency ``f`` (a module that
+    carries ``coords`` and ``shape``) on ``device``, for state parts of
+    ``dtype`` (float32, the only one the kernel takes): its
+    :func:`df_smem_bytes` at most ``limit`` bytes, by default the opt-in
+    shared memory of one block of that card, which the launcher checks
+    too (:func:`~qgs_tpu_torch.ops._build.max_smem_optin`)."""
+    if dtype != torch.float32:
+        raise TypeError(f"dtype {dtype}: the kernel takes float32 (hi, lo) "
+                        "pairs")
+    width = row_groups(f.coords, f.shape[0], groups).width
+    if limit is None:
+        limit = _build.max_smem_optin(device)
+    return df_smem_bytes(f.shape[0], groups, width) <= limit
 
 
 def fused_df_rk4_reference(f, y_hi, y_lo, dts, write_every=0):
@@ -132,7 +165,8 @@ def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0, groups=DEFAULT_GROUPS):
     write_every, B, n) holding the state after every ``write_every`` steps.
     The inputs are not modified.  A CPU state runs
     :func:`fused_df_rk4_reference`; a CUDA state launches the kernel or
-    raises."""
+    raises (``RuntimeError`` for a layout that does not :func:`df_fits` the
+    card)."""
     global launches
     if groups not in GROUPS:
         raise ValueError(f"groups = {groups}: the kernel takes one of "

@@ -21,11 +21,17 @@ the state every ``write_every`` steps.
   evaluates the tendency through that layout in plain PyTorch, group by
   group, in the kernel's summation order.
 * :func:`csr_layout` is the row-sorted list of entries that
-  :func:`group_layout` is built from.
+  :func:`group_layout` is built from, and :func:`row_groups` its rows'
+  assignment to groups, from the per-row entry counts alone.
+* :func:`fits` says, before any launch, whether the kernel's layout of a
+  tendency fits one block's opt-in shared memory (:func:`smem_bytes`, the
+  launcher's own formula); a layout that does not is refused by the
+  launcher, so the integrators take the plain step loop instead.
 """
 
 from __future__ import annotations
 
+import heapq
 from typing import NamedTuple
 
 import numpy as np
@@ -47,6 +53,8 @@ DEFAULT_GROUPS = 8
 CHUNK = 2                # entries a chunk: the kernel's partial sums a row
 AHEAD = 1                # chunks the kernel reads past a group's end
 LAST = 1 << 16           # ctl flag: the chunk ends its row
+LANES = 32               # trajectories a block, one a lane
+REC_BYTES = 16           # an entry record in shared memory (Rec<T>)
 
 
 class GroupLayout(NamedTuple):
@@ -87,34 +95,59 @@ def csr_layout(coords, data, shape):
     return row_ptr, jk, data[keep][order]
 
 
+class RowGroups(NamedTuple):
+    """The rows' assignment to groups that :func:`group_layout` lays out:
+    ``counts`` (n,) entries of each state row, ``padded`` (n,) its records
+    (whole chunks, at least one), ``group_of_row`` (n,), ``load``
+    (groups,) records of each group, and ``width`` the records a group's
+    table holds (the longest group plus :data:`AHEAD` chunks)."""
+    counts: np.ndarray
+    padded: np.ndarray
+    group_of_row: np.ndarray
+    load: np.ndarray
+    width: int
+
+
+def row_groups(coords, n1, groups):
+    """Assign the output rows of a rank-3 COO tensor (``coords[0]`` its
+    output rows, ``n1`` its first dimension) to ``groups`` groups, from the
+    per-row entry counts alone (no record is built): each row's entries
+    (output row 0, the dummy, dropped) are padded to whole chunks of
+    :data:`CHUNK`, a row without entries gets one chunk, and rows go to
+    groups longest first, each to the group with the fewest records so far
+    (the lowest such group on a tie).  Returns a :class:`RowGroups`."""
+    n1 = int(n1)
+    counts = np.bincount(np.asarray(coords[0], np.int64), minlength=n1)[1:]
+    padded = np.maximum(-(-counts // CHUNK), 1) * CHUNK
+    group_of_row = np.empty(n1 - 1, np.int64)
+    heap = [(0, g) for g in range(groups)]      # (records so far, group)
+    for i in np.argsort(-padded, kind="stable").tolist():
+        load, g = heap[0]
+        group_of_row[i] = g
+        heapq.heapreplace(heap, (load + int(padded[i]), g))
+    load = np.zeros(groups, np.int64)
+    for total, g in heap:
+        load[g] = total
+    return RowGroups(counts, padded, group_of_row, load,
+                     int(load.max(initial=0)) + AHEAD * CHUNK)
+
+
 def group_layout(coords, data, shape, groups):
     """Split the output rows of a rank-3 COO tensor into ``groups`` groups
-    for the kernel (a :class:`GroupLayout`).
-
-    Each row's entries (output row 0, the dummy, dropped; COO order kept
-    within a row) are padded with zero entries to whole chunks of
-    :data:`CHUNK`, and a row without entries gets one chunk of them, so
-    that the kernel still writes it.  Rows go to groups longest first, each
-    to the group with the fewest records so far (the lowest such group on
-    a tie); a group lists its rows in increasing order."""
+    for the kernel (a :class:`GroupLayout`), as :func:`row_groups` assigns
+    them; a group lists its rows in increasing order, each row's entries in
+    COO order, padded with zero entries to its chunks (so that the kernel
+    still writes a row without entries)."""
     row_ptr, jk, vals = csr_layout(coords, data, shape)
-    n = int(shape[0]) - 1
-    counts = np.diff(row_ptr)[1:]
-    padded = np.maximum(-(-counts // CHUNK), 1) * CHUNK
-    load = np.zeros(groups, np.int64)
-    group_of_row = np.empty(n, np.int64)
-    for i in np.argsort(-padded, kind="stable"):
-        g = int(np.argmin(load))
-        group_of_row[i] = g
-        load[g] += padded[i]
-    width = int(load.max(initial=0)) + AHEAD * CHUNK
-    out = GroupLayout(np.zeros((groups, width), np.int32),
-                      np.zeros((groups, width), np.int32),
-                      np.zeros((groups, width)), load.astype(np.int32),
-                      group_of_row)
+    rg = row_groups(coords, shape[0], groups)
+    counts, padded = rg.counts, rg.padded
+    out = GroupLayout(np.zeros((groups, rg.width), np.int32),
+                      np.zeros((groups, rg.width), np.int32),
+                      np.zeros((groups, rg.width)), rg.load.astype(np.int32),
+                      rg.group_of_row)
     for g in range(groups):
         pos = 0
-        for i in np.flatnonzero(group_of_row == g):
+        for i in np.flatnonzero(rg.group_of_row == g):
             e = slice(row_ptr[i + 1], row_ptr[i + 2])
             out.jk[g, pos:pos + counts[i]] = jk[e]
             out.vals[g, pos:pos + counts[i]] = vals[e]
@@ -122,6 +155,32 @@ def group_layout(coords, data, shape, groups):
             out.ctl[g, pos + padded[i] - CHUNK:pos + padded[i]] |= LAST
             pos += padded[i]
     return out
+
+
+def smem_bytes(n1, groups, width, dtype):
+    """Shared memory of one block of the kernel in ``dtype`` (float32 or
+    float64) for a layout of ``groups`` tables of ``width`` records over a
+    tensor of first dimension ``n1``: the records, then four state rows of
+    ``n1`` or ``n`` lanes (``smem_bytes`` of ``csrc/rk4_fused.cu``, which
+    ``chip_smoke.py`` holds this against)."""
+    if dtype not in _FNS:
+        raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
+    itemsize = 8 if dtype == torch.float64 else 4
+    n1 = int(n1)
+    return (REC_BYTES * groups * width
+            + itemsize * (2 * (n1 - 1) + 2 * n1) * LANES)
+
+
+def fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+    """Whether the kernel can run the rank-3 tendency ``f`` (a module that
+    carries ``coords`` and ``shape``) in ``dtype`` on ``device``: its
+    :func:`smem_bytes` at most ``limit`` bytes, by default the opt-in
+    shared memory of one block of that card, which the launcher checks
+    too (:func:`~qgs_tpu_torch.ops._build.max_smem_optin`)."""
+    width = row_groups(f.coords, f.shape[0], groups).width
+    if limit is None:
+        limit = _build.max_smem_optin(device)
+    return smem_bytes(f.shape[0], groups, width, dtype) <= limit
 
 
 def group_tendency(layout, x):
@@ -235,7 +294,8 @@ def fused_rk4(f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
     Returns ``(y_final, records)``, records (n_steps // write_every, B, n)
     holding the state after every ``write_every`` steps.  ``y`` is not
     modified.  A CPU state runs :func:`fused_rk4_reference`; a CUDA state
-    launches the kernel or raises."""
+    launches the kernel or raises (``RuntimeError`` for a layout that does
+    not :func:`fits` the card)."""
     global launches
     if groups not in GROUPS:
         raise ValueError(f"groups = {groups}: the kernel takes one of "

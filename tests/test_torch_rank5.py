@@ -333,29 +333,35 @@ def test_probe_never_calls_a_module_with_its_tensor(settings):
 
 
 class _OnCard:
-    """A stand-in state that reports a CUDA device."""
+    """A stand-in state of ``dtype`` that reports a CUDA device."""
     is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, dtype=torch.float64):
+        self.dtype = dtype
 
 
-def test_rank5_models_route_to_the_step_loop(system):
+def test_rank5_models_route_to_the_step_loop(system, monkeypatch):
     """The fused RK4 kernels take rank 3 only: ``fused_route`` sends a
-    rank-3 tendency on a CUDA state to them and a rank-5 one (float64 or
-    double-float) to the plain step loop."""
+    rank-3 tendency on a CUDA state to them (MAOOAM's layout fits the
+    card's shared memory; the H100's opt-in limit stands in for the card's)
+    and a rank-5 one (float64 or double-float) to the plain step loop."""
     from qgs_tpu_torch.integrators.rk import rk4_tableau
+    from qgs_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "max_smem_optin", lambda device: 232448)
     s = system
     tab = rk4_tableau()
     T = s["qgt_p"].tensor
+    pair = (_OnCard(torch.float32), _OnCard(torch.float32))
     assert not fused_route(s["f_p"].batched, _OnCard(), tab)
     assert not fused_route(tf.DfTendency(T.coords, T.data, T.shape,
-                                         device="cpu"),
-                           (_OnCard(), _OnCard()), tab)
+                                         device="cpu"), pair, tab)
     _, pars3 = both_params(maooam)
     f3, _, q3 = create_tendencies(pars3, return_qgtensor=True, device="cpu")
     assert fused_route(f3.batched, _OnCard(), tab)
     T3 = q3.tensor
     assert fused_route(tf.DfTendency(T3.coords, T3.data, T3.shape,
-                                     device="cpu"), (_OnCard(), _OnCard()),
-                       tab)
+                                     device="cpu"), pair, tab)
     assert not fused_route(f3.batched, torch.zeros(1, 36), tab)
 
 
