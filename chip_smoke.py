@@ -87,12 +87,21 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    plain float64 version, in twofloat and ndim 228 in float64 through the
    plain step loop (no launch), each against the CPU on 8 members and
    timed; K1 at ndim 104 against its plain version at B = 1, 31, 4097 and
-   timed at B = 4096; direct launches of layouts too large raising.
+   timed at B = 4096; direct launches of layouts too large raising;
+13. the long-horizon climate gate: 4 MAOOAM attractor members from the
+   port's native float64 oracle, 120,000 steps of dt 0.1 (a record every
+   10) by the oracle and by ``RungeKuttaIntegrator.integrate`` on the card
+   in twofloat (one K2 launch), float64 and float32 (one K1 launch each);
+   twofloat and float64 held to the oracle's climate (per-variable means
+   and stds, the dominant spectral bin) at the tolerances of
+   ``benchmarks/fidelity.py``, and pointwise on the first 5 records;
+   float32's metrics printed, gated on finiteness.
 
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
 kernel's numbers, ``{"kernels": [...]}`` (``launches`` those of the main
-paths of phases 4, 9, 10, 11 and 12), the one before that phase 12's
+paths of phases 4, 9, 10, 11, 12 and 13), the one before that phase 13's
+numbers, ``{"fidelity": {...}}``, the one before that phase 12's
 numbers, ``{"large_models": {...}}``, the one before that phase 11's,
 ``{"examples": {...}}``, the one before that phase 10's,
 ``{"compat": {...}}``, the one before that phase 6's, ``{"tangent":
@@ -567,7 +576,7 @@ def rank5_phase(card, dev):
     ``TrajectoriesStatistics``: checks (each ``fail``s the run) and times.
     Returns the numbers."""
     import torch
-    from qgs_tpu_torch.host import QgParams
+    from qgs_tpu_torch.params.params import QgParams
     from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
     from qgs_tpu_torch.integrators.rk import (make_tgls_step, rk4_tableau,
                                               time_grid)
@@ -981,7 +990,7 @@ def diagnostics_phase(f, ic_main, card, dev):
     from qgs_tpu_torch.diagnostics import (eddy, multi, streamfunctions,
                                            temperatures, variables,
                                            vorticity, wind)
-    from qgs_tpu_torch.host import QgParams
+    from qgs_tpu_torch.params.params import QgParams
     from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
     from qgs_tpu_torch.integrators.rk import time_grid
     from qgs_tpu_torch.models.tendencies import create_tendencies
@@ -1835,7 +1844,7 @@ def large_models_phase(card, dev):
     ``fail`` the run.  Returns the numbers and the launches of the paths,
     by kernel."""
     import torch
-    from qgs_tpu_torch.host import QgParams
+    from qgs_tpu_torch.params.params import QgParams
     from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
     from qgs_tpu_torch.integrators.rk import (fused_route, rk4_tableau,
                                               time_grid)
@@ -2066,6 +2075,215 @@ def large_models_phase(card, dev):
     return out, launches
 
 
+# Phase 13: the long-horizon climate gate (the port's counterpart of
+# ``tests/test_fidelity_longrun.py`` and ``benchmarks/fidelity.py``).  Chaos
+# rules out comparing points over 120,000 steps, so the run is held to the
+# native float64 oracle's climate: per-variable means and stds, and the
+# dominant spectral bin.  The tolerances are the ones
+# ``benchmarks/fidelity.py`` records.
+FIDELITY_STEPS = 120_000
+FIDELITY_MEMBERS = 4
+FIDELITY_WRITE = 10
+TOL_FIDELITY_POINTWISE = dict(rtol=5e-7, atol=5e-9)   # the first 5 records
+
+
+def attractor_ensemble(tensor, ndim, n_members, transient_steps=200_000,
+                       spacing_steps=20_000, dt=0.1):
+    """Decorrelated initial conditions on the attractor, (n_members, ndim),
+    from one long trajectory of the port's native float64 oracle: a seeded
+    start (``default_rng(42)``), a transient, then ``spacing_steps``
+    between members."""
+    from qgs_tpu_torch import native
+
+    rng = np.random.default_rng(42)
+    y = rng.random(ndim) * 0.01
+    y, _ = native.rk4_integrate(tensor, y, dt, transient_steps)
+    ics = []
+    for _ in range(n_members):
+        y, _ = native.rk4_integrate(tensor, y, dt, spacing_steps)
+        ics.append(y.copy())
+    return np.asarray(ics)
+
+
+def run_oracle(tensor, ics, n_steps, write_steps, dt=0.1):
+    """The native oracle's trajectories of ``ics``, (B, n_records, ndim)."""
+    from qgs_tpu_torch import native
+
+    return np.asarray([native.rk4_integrate(tensor, ic, dt, n_steps,
+                                            write_steps=write_steps)[1]
+                       for ic in ics])
+
+
+def climate_stats(recs, burn_frac=0.1):
+    """Per-variable mean and std pooled over members and time, after the
+    first ``burn_frac`` of the records."""
+    burn = int(recs.shape[1] * burn_frac)
+    flat = recs[:, burn:, :].reshape(-1, recs.shape[-1])
+    return flat.mean(axis=0), flat.std(axis=0)
+
+
+def psd_peak(recs, var=0, dt_rec=1.0):
+    """The dominant nonzero-frequency bin of one variable's power spectrum,
+    averaged over members: ``(frequency, bin)``."""
+    x = recs[:, :, var]
+    x = x - x.mean(axis=1, keepdims=True)
+    psd = (np.abs(np.fft.rfft(x, axis=1)) ** 2).mean(axis=0)
+    freqs = np.fft.rfftfreq(x.shape[1], d=dt_rec)
+    k = 1 + int(np.argmax(psd[1:]))
+    return freqs[k], k
+
+
+def compare_climate(oracle, device):
+    """The gate's metrics of ``device``'s records against ``oracle``'s,
+    both (B, n_records, ndim): the largest mean deviation in units of the
+    oracle's std, the range of the std ratio over the active variables
+    (std above 1e-3 of the largest), and both dominant PSD bins."""
+    mo, so = climate_stats(oracle)
+    md, sd = climate_stats(device)
+    mean_dev = np.abs(md - mo) / np.maximum(so, 1e-12)
+    active = so > 1e-3 * so.max()
+    std_ratio = sd[active] / so[active]
+    _, ko = psd_peak(oracle)
+    _, kd = psd_peak(device)
+    return {"max_mean_dev_in_std": float(mean_dev.max()),
+            "max_std_ratio": float(std_ratio.max()),
+            "min_std_ratio": float(std_ratio.min()),
+            "psd_peak_oracle_bin": int(ko),
+            "psd_peak_device_bin": int(kd)}
+
+
+def check_metrics(metrics, mean_tol=0.1, std_lo=0.8, std_hi=1.25,
+                  psd_bins=1):
+    """The tolerances that ``metrics`` break (an empty list when it meets
+    them all)."""
+    broken = []
+    if not metrics["max_mean_dev_in_std"] <= mean_tol:
+        broken.append(f"mean deviation {metrics['max_mean_dev_in_std']} > "
+                      f"{mean_tol} std")
+    if not std_lo <= metrics["min_std_ratio"]:
+        broken.append(f"std ratio {metrics['min_std_ratio']} < {std_lo}")
+    if not metrics["max_std_ratio"] <= std_hi:
+        broken.append(f"std ratio {metrics['max_std_ratio']} > {std_hi}")
+    if not abs(metrics["psd_peak_device_bin"]
+               - metrics["psd_peak_oracle_bin"]) <= psd_bins:
+        broken.append(f"PSD bin {metrics['psd_peak_device_bin']} more than "
+                      f"{psd_bins} from {metrics['psd_peak_oracle_bin']}")
+    return broken
+
+
+def fidelity_phase(card, dev):
+    """13. The long-horizon climate gate on MAOOAM (``qgs_maooam.py``'s
+    settings, ndim 36): 4 attractor members from the port's native float64
+    oracle (a 200,000-step transient from ``default_rng(42)``, 20,000 steps
+    between members), then 120,000 steps of dt 0.1 with a record every 10
+    steps by the oracle and by ``RungeKuttaIntegrator.integrate`` on the
+    card: twofloat (one K2 launch), float64 (one K1 launch) and float32
+    (the tendency built in float32, one K1 launch).  Twofloat and float64
+    must match the oracle pointwise on the first 5 records (rtol 5e-7,
+    atol 5e-9), stay finite, and meet the climate tolerances of
+    ``benchmarks/fidelity.py`` (mean deviation at most 0.1 std, std ratio
+    of the active variables in [0.8, 1.25], dominant PSD bin within one
+    bin).  float32 is gated on finiteness only: the JAX package has no
+    float32 climate gate, and a tolerance chosen after seeing the card's
+    numbers would be no gate; its metrics are printed.  Checks ``fail``
+    the run.  Returns the numbers and the launches, by kernel."""
+    import torch
+    from qgs_tpu_torch.params.params import QgParams
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+    from qgs_tpu_torch.models.tendencies import create_tendencies
+    from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+
+    start = time.perf_counter()
+    pars = maooam_params(QgParams)
+    n = pars.ndim
+    f, _, qgt = create_tendencies(pars, return_qgtensor=True, device=dev)
+    f32, _ = create_tendencies(pars, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    ics = attractor_ensemble(qgt.tensor, n, FIDELITY_MEMBERS)
+    ics_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = run_oracle(qgt.tensor, ics, FIDELITY_STEPS, FIDELITY_WRITE)
+    oracle_s = time.perf_counter() - t0
+    n_rec = FIDELITY_STEPS // FIDELITY_WRITE + 1
+    if oracle.shape != (FIDELITY_MEMBERS, n_rec, n):
+        fail(f"[13] oracle records {oracle.shape}")
+    out = {"card": card, "members": FIDELITY_MEMBERS,
+           "steps": FIDELITY_STEPS, "write_steps": FIDELITY_WRITE,
+           "oracle": {"ics_s": ics_s, "s": oracle_s,
+                      "steps": FIDELITY_MEMBERS * FIDELITY_STEPS + 200_000
+                      + FIDELITY_MEMBERS * 20_000}}
+    print(f"[13] native oracle: {FIDELITY_MEMBERS} attractor members in "
+          f"{ics_s:.2f} s, {FIDELITY_MEMBERS} x {FIDELITY_STEPS} steps in "
+          f"{oracle_s:.2f} s (host)", flush=True)
+    # precision: (tendency, integrator precision, the launches expected,
+    # gated on the climate)
+    runs = {"twofloat": (f, "twofloat", {"rk4_fused": 0, "rk4_df_fused": 1},
+                         True),
+            "float64": (f, "float64", {"rk4_fused": 1, "rk4_df_fused": 0},
+                        True),
+            "float32": (f32, "float64", {"rk4_fused": 1, "rk4_df_fused": 0},
+                        False)}
+    launches = {"rk4_fused": 0, "rk4_df_fused": 0}
+    for name, (fn, precision, expect, gated) in runs.items():
+        integrator = RungeKuttaIntegrator(precision=precision)
+        integrator.set_func(fn)
+        torch.cuda.synchronize()
+        fused_rk4.launches = fused_df_rk4.launches = 0
+        t0 = time.perf_counter()
+        integrator.integrate(0., FIDELITY_STEPS * 0.1, 0.1, ic=ics,
+                             write_steps=FIDELITY_WRITE)
+        t, traj = integrator.get_trajectories()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {"rk4_fused": fused_rk4.launches,
+               "rk4_df_fused": fused_df_rk4.launches}
+        for k in launches:
+            launches[k] += got[k]
+        if got != expect:
+            fail(f"[13] {name}: launches {got}, expected {expect}")
+        recs = torch.movedim(traj, -1, 1).double().cpu().numpy()
+        if recs.shape != oracle.shape or len(t) != n_rec:
+            fail(f"[13] {name}: records {recs.shape}, oracle {oracle.shape}")
+        finite = bool(np.isfinite(recs).all())
+        head = float(np.abs(recs[:, :5] - oracle[:, :5]).max())
+        every = float(np.abs(recs - oracle).max())
+        metrics = compare_climate(oracle, recs)
+        out[name] = {"s": secs, "launches": got, "finite": finite,
+                     "first_5_records_max_abs_err": head,
+                     "all_records_max_abs_err": every,
+                     "traj_steps_per_s":
+                         FIDELITY_MEMBERS * FIDELITY_STEPS / secs,
+                     "gated": gated, **metrics}
+        print(f"[13] {name}: {FIDELITY_MEMBERS} x {FIDELITY_STEPS} steps in "
+              f"{secs:.3f} s, launches {got}; finite {finite}; first 5 "
+              f"records vs oracle {head:.3e}, all records {every:.3e} "
+              f"(not gated); mean deviation "
+              f"{metrics['max_mean_dev_in_std']:.4f} std, std ratio "
+              f"[{metrics['min_std_ratio']:.4f}, "
+              f"{metrics['max_std_ratio']:.4f}], PSD bin oracle "
+              f"{metrics['psd_peak_oracle_bin']} / "
+              f"{metrics['psd_peak_device_bin']}; "
+              f"{'gated' if gated else 'printed, gated on finiteness'}; "
+              f"{card}", flush=True)
+        if not finite:
+            fail(f"[13] {name}: non-finite records")
+        if gated:
+            if not np.allclose(recs[:, :5], oracle[:, :5],
+                               **TOL_FIDELITY_POINTWISE):
+                fail(f"[13] {name}: first 5 records {head:.3e} from the "
+                     f"oracle (rtol {TOL_FIDELITY_POINTWISE['rtol']}, atol "
+                     f"{TOL_FIDELITY_POINTWISE['atol']})")
+            broken = check_metrics(metrics)
+            if broken:
+                fail(f"[13] {name}: climate against the oracle: "
+                     f"{'; '.join(broken)}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - start
+    print(f"[13] fidelity phase {out['phase_s']:.1f} s; launches "
+          f"{launches}; {card}", flush=True)
+    return out, launches
+
+
 def main():
     # -- 1. device ---------------------------------------------------------
     try:
@@ -2075,7 +2293,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     try:
-        from qgs_tpu_torch.host import QgParams
+        from qgs_tpu_torch.params.params import QgParams
         from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
         from qgs_tpu_torch.integrators.rk import (integrate_runge_kutta,
                                                   integrate_runge_kutta_df,
@@ -2343,6 +2561,9 @@ def main():
     # -- 12. models past one block's shared memory -------------------------
     large, large_launches = large_models_phase(card, dev)
 
+    # -- 13. the long-horizon climate gate ----------------------------------
+    fidelity, fidelity_launches = fidelity_phase(card, dev)
+
     leaked = sorted(m for m in ("jax", "qgs_tpu") if m in sys.modules)
     if leaked:
         fail(f"{' and '.join(leaked)} got imported during the smoke run")
@@ -2355,12 +2576,14 @@ def main():
         "launches": (launches["rk4_fused"] + parallel_launches["rk4_fused"]
                      + compat_launches["rk4_fused"]
                      + examples_launches["rk4_fused"]
-                     + large_launches["rk4_fused"]),
+                     + large_launches["rk4_fused"]
+                     + fidelity_launches["rk4_fused"]),
         "main_path_launches": launches["rk4_fused"],
         "parallel_launches": parallel_launches["rk4_fused"],
         "compat_launches": compat_launches["rk4_fused"],
         "examples_launches": examples_launches["rk4_fused"],
         "large_models_launches": large_launches["rk4_fused"],
+        "fidelity_launches": fidelity_launches["rk4_fused"],
         "ndim104": large["k1_ndim104"],
         "flv_launches": flv_launches["float64"]["rk4_fused"],
         "max_abs_err": max(errs64),
@@ -2392,12 +2615,14 @@ def main():
                      + parallel_launches["rk4_df_fused"]
                      + compat_launches["rk4_df_fused"]
                      + examples_launches["rk4_df_fused"]
-                     + large_launches["rk4_df_fused"]),
+                     + large_launches["rk4_df_fused"]
+                     + fidelity_launches["rk4_df_fused"]),
         "main_path_launches": launches["rk4_df_fused"],
         "parallel_launches": parallel_launches["rk4_df_fused"],
         "compat_launches": compat_launches["rk4_df_fused"],
         "examples_launches": examples_launches["rk4_df_fused"],
         "large_models_launches": large_launches["rk4_df_fused"],
+        "fidelity_launches": fidelity_launches["rk4_df_fused"],
         "flv_launches": flv_launches["twofloat"]["rk4_df_fused"],
         "max_abs_err": err_df,
         "ms": times["df"][0],
@@ -2423,6 +2648,7 @@ def main():
     print(json.dumps({"compat": compat}), flush=True)
     print(json.dumps({"examples": examples_out}), flush=True)
     print(json.dumps({"large_models": large}), flush=True)
+    print(json.dumps({"fidelity": fidelity}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,7 +19,7 @@ import time
 
 import numpy as np
 
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.parallel import distributed

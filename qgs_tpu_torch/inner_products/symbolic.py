@@ -681,6 +681,11 @@ class OceanicSymbolicInnerProducts(OceanicInnerProducts, _SymbolicIPBase):
             self._N = COO.from_dict(N, (no, no)).todense()
             self._O = COO.from_dict(O, (no, no, no)).todense()
             self._C = COO.from_dict(C, (no, no, no)).todense()
+        if self._T4 or self._dynamic_T:
+            # the quartic (phi_i, phi_j phi_k phi_l phi_m) of the rank-5
+            # schemes, which the quadrature path computes too
+            idx = AtmosphericSymbolicInnerProducts._theta_pairs(self, no)
+            self._V = self._exact_quartic_oc(P, P, idx)
 
     def connect_to_atmosphere(self, atmosphere_basis, num_threads=None, timeout=None):
         if timeout is not None:

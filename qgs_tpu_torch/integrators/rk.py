@@ -52,15 +52,17 @@ from qgs_tpu_torch.ops import fused_df_rk4 as _fused_df
 from qgs_tpu_torch.ops import fused_rk4 as _fused
 from qgs_tpu_torch.ops.contraction import Tendency, _with_dummy
 from qgs_tpu_torch.ops.twofloat import (
-    DfTendency, df_from_f64, df_to_f64, make_df_rk4_step_dynamic,
+    DfTangent, DfTendency, df_from_f64, df_to_f64, make_df_rk4_step_dynamic,
     make_df_rk_step_dynamic, make_df_tgls_rk4_step_dynamic,
     make_df_tgls_rk_step_dynamic,
 )
 from qgs_tpu_torch.parallel.mesh import map_shards
 
 
-def rk4_tableau():
-    """The classical RK4 Butcher tableau (reference default)."""
+def rk4_tableau(dtype=torch.float64):
+    """The classical RK4 Butcher tableau (reference default), float64 NumPy
+    arrays.  ``dtype`` is accepted for the JAX package's signature and, as
+    there, changes nothing: a step runs in its state's dtype."""
     c = np.array([0., 0.5, 0.5, 1.])
     b = np.array([1. / 6, 1. / 3, 1. / 3, 1. / 6])
     a = np.zeros((4, 4))
@@ -70,8 +72,8 @@ def rk4_tableau():
     return a, b, c
 
 
-def rk2_tableau():
-    """Heun's second-order method."""
+def rk2_tableau(dtype=torch.float64):
+    """Heun's second-order method (``dtype`` as in :func:`rk4_tableau`)."""
     c = np.array([0., 1.])
     b = np.array([0.5, 0.5])
     a = np.zeros((2, 2))
@@ -110,10 +112,11 @@ def _is_rk4(a, b, c):
                for x, y in zip((a, b, c), rk4_tableau()))
 
 
-def make_rk_step(f, a, b, c):
+def make_rk_step(f, a, b, c, dtype=torch.float64):
     """Single-step function ``step(y, tt, dt) -> y_new`` for the explicit
     tableau (a, b, c).  ``dt`` is cast to the state dtype before it scales
-    a stage (as in the JAX package: float32 states stay float32)."""
+    a stage (as in the JAX package: float32 states stay float32, whatever
+    ``dtype``, which is accepted for the JAX package's signature)."""
     s = len(b)
     a = np.asarray(a)
     b = np.asarray(b)
@@ -137,7 +140,7 @@ def make_rk_step(f, a, b, c):
 
 
 def make_tgls_step(f, fjac, a, b, c, adjoint=False, inverse=False,
-                   boundary=None, tangent=None):
+                   boundary=None, dtype=torch.float64, tangent=None):
     """Single step ``step((y, dm), tt, dt) -> (y', dm')`` of the coupled
     (trajectory, tangent) system, ``dm`` a (B, ndim, n_tg) block propagated
     by ``d(dm)/dt = +-J(x) dm`` (``J^T`` for the adjoint, ``-`` for the
@@ -147,7 +150,7 @@ def make_tgls_step(f, fjac, a, b, c, adjoint=False, inverse=False,
     Without ``tangent`` the Jacobian ``fjac(t, y_s)`` is materialized; with
     it, ``tangent(xx, dm)`` (a :class:`~qgs_tpu_torch.ops.contraction.Tangent`
     carrying the adjoint/inverse transform itself) is applied to ``xx = [1,
-    y_s]``."""
+    y_s]``.  ``dtype`` is :func:`make_rk_step`'s."""
     s = len(b)
     a = np.asarray(a)
     b = np.asarray(b)
@@ -336,6 +339,17 @@ def _df_records(fns, ys, tableau, tts, dts, write_steps):
     return _step_loops(steps, ys, tts, dts, write_steps, df_to_f64)
 
 
+def _df_module(tensor, cls, ic, device):
+    """``tensor`` itself when it is callable, else the COO tensor wrapped in
+    ``cls`` (:class:`~qgs_tpu_torch.ops.twofloat.DfTendency` or
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTangent`) on the device that
+    :func:`resolve_device` gives."""
+    if callable(tensor):
+        return tensor
+    return cls(tensor.coords, tensor.data, tensor.shape,
+               device=resolve_device(None, ic, device))
+
+
 def _directed_grid(t0, t, dt, forward):
     """The time grid, and each step's start time and size in the direction
     of integration."""
@@ -385,22 +399,25 @@ def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
     return _finish(time, recs, forward, write_steps, squeeze)
 
 
-def integrate_runge_kutta_df(f, t0, t, dt, ic, forward=True, write_steps=1,
-                             squeeze=True, a=None, b=None, c=None,
-                             device=None, mesh=None):
+def integrate_runge_kutta_df(tensor, t0, t, dt, ic, forward=True,
+                             write_steps=1, squeeze=True, a=None, b=None,
+                             c=None, device=None, mesh=None):
     """Integrate the model in double-float (pairs of float32) arithmetic:
     about 48-bit-mantissa trajectories, with the time grid, record and
     ``mesh`` semantics of :func:`integrate_runge_kutta`.  Counterpart of the
     JAX package's ``integrate_runge_kutta_df``.
 
-    ``f`` is a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`, or any
-    ``f(y_hi, y_lo) -> (f_hi, f_lo)`` on (B, ndim) pairs.  ``ic`` is float64
-    (B, ndim) and the returned trajectory is float64, on the device that
+    ``tensor`` is the COO tendency tensor (``QgsTensor.tensor``), wrapped
+    once in a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on the
+    integration's device; or a ``DfTendency`` itself, or any ``f(y_hi,
+    y_lo) -> (f_hi, f_lo)`` on (B, ndim) pairs.  ``ic`` is float64 (B,
+    ndim) and the returned trajectory is float64, on the device that
     :func:`resolve_device` gives.  Any explicit Butcher tableau is accepted
     (default RK4); an implicit one raises ``ValueError``.  Classical RK4 of a
     rank-3 ``DfTendency`` on a CUDA state runs in one launch of the fused
     kernel; every other case runs the plain double-float step loop.
     """
+    f = _df_module(tensor, DfTendency, ic, device)
     y = as_state(f, ic, device, torch.float64)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
@@ -476,20 +493,25 @@ def integrate_runge_kutta_tgls(f, fjac, t0, t, dt, ic, tg_ic, forward=True,
     return _finish_tgls(time, recs, forward, write_steps)
 
 
-def integrate_runge_kutta_tgls_df(f, tangent, t0, t, dt, ic, tg_ic,
+def integrate_runge_kutta_tgls_df(tensor, jtensor, t0, t, dt, ic, tg_ic,
                                   forward=True, adjoint=False, inverse=False,
-                                  write_steps=1, a=None, b=None, c=None,
-                                  device=None, mesh=None):
+                                  write_steps=1, mesh=None, a=None, b=None,
+                                  c=None, device=None):
     """Integrate the coupled (trajectory, tangent) system in double-float
     arithmetic, with the time grid, record, shape and ``mesh`` semantics of
     :func:`integrate_runge_kutta_tgls`.  Counterpart of the JAX package's
     ``integrate_runge_kutta_tgls_df``.
 
-    ``f`` is a :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` and
-    ``tangent`` a :class:`~qgs_tpu_torch.ops.twofloat.DfTangent`, which
-    ``adjoint`` and ``inverse`` transform further.  ``ic`` and ``tg_ic``
-    are float64 and so are the results.  Any explicit Butcher tableau is
-    accepted (default RK4); there is no boundary term."""
+    ``tensor`` and ``jtensor`` are the COO tendency and Jacobian tensors
+    (``QgsTensor.tensor``, ``.jacobian_tensor``), wrapped once in a
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` and a
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTangent` on the integration's
+    device, or those modules themselves; ``adjoint`` and ``inverse``
+    transform the tangent further.  ``ic`` and ``tg_ic`` are float64 and so
+    are the results.  Any explicit Butcher tableau is accepted (default
+    RK4); there is no boundary term."""
+    f = _df_module(tensor, DfTendency, ic, device)
+    tangent = _df_module(jtensor, DfTangent, ic, device)
     y, tg = _tgls_start(f, ic, tg_ic, device, torch.float64)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()

@@ -4,7 +4,8 @@ Tendencies factory
 
 Counterpart of :mod:`qgs_tpu.models.tendencies`: ``create_tendencies``
 builds the inner products and the tendency tensor on the host (the port's
-NumPy/SymPy layers, :mod:`qgs_tpu_torch.host`; rank 3, or rank 5 for the
+NumPy/SymPy layers, :mod:`qgs_tpu_torch.inner_products` and
+:mod:`qgs_tpu_torch.tensors`; rank 3, or rank 5 for the
 dynamic-T and T4 configurations) and returns the PyTorch tendency ``f(t,
 x)`` and Jacobian ``Df(t, x)`` on single states, with their batched
 versions attached as ``.batched`` and the tensor object as ``.qgtensor``.
@@ -16,13 +17,19 @@ from __future__ import annotations
 
 import torch
 
-from qgs_tpu_torch.host import (
-    AtmosphericAnalyticInnerProducts, AtmosphericSymbolicInnerProducts,
-    AtmoThermoTensor, AtmoThermoTensorDynamicT, AtmoThermoTensorT4,
-    GroundAnalyticInnerProducts, GroundSymbolicInnerProducts,
-    OceanicAnalyticInnerProducts, OceanicSymbolicInnerProducts, QgsTensor,
-    QgsTensorDynamicT, QgsTensorT4,
+from qgs_tpu_torch.inner_products.analytic import (
+    AtmosphericAnalyticInnerProducts, GroundAnalyticInnerProducts,
+    OceanicAnalyticInnerProducts,
 )
+from qgs_tpu_torch.inner_products.symbolic import (
+    AtmosphericSymbolicInnerProducts, GroundSymbolicInnerProducts,
+    OceanicSymbolicInnerProducts,
+)
+from qgs_tpu_torch.tensors.atmo_thermo import (
+    AtmoThermoTensor, AtmoThermoTensorDynamicT, AtmoThermoTensorT4,
+)
+from qgs_tpu_torch.tensors.qgtensor import (QgsTensor, QgsTensorDynamicT,
+                                            QgsTensorT4)
 from qgs_tpu_torch.ops.contraction import make_tendency_fns, single_state
 
 

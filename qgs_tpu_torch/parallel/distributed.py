@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from qgs_tpu_torch.parallel import mesh as _mesh
 from qgs_tpu_torch.parallel.mesh import (  # noqa: F401 (re-exported)
     ENSEMBLE_AXIS, MODEL_AXIS, Mesh, is_distributed, local_devices,
     shard_ensemble,
@@ -46,14 +47,17 @@ _TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
-               backend=None):
+               local_device_ids=None, backend=None):
     """Join the job's process group; idempotent.
 
     With no arguments the environment ``torchrun`` sets (``MASTER_ADDR``,
     ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) is used, and
     nothing happens where nothing says the run is multi-process.
-    ``coordinator_address`` is ``host:port`` of rank 0.  ``backend``
-    defaults to NCCL for CUDA tensors and gloo for CPU tensors
+    ``coordinator_address`` is ``host:port`` of rank 0.
+    ``local_device_ids`` are the card indices this process drives (default
+    ``LOCAL_RANK``'s card under ``torchrun``, else every card): they become
+    :func:`local_devices`, and the first is made the current card.
+    ``backend`` defaults to NCCL for CUDA tensors and gloo for CPU tensors
     (``'cpu:gloo,cuda:nccl'``) where there is a card, else gloo."""
     if dist.is_initialized():
         return
@@ -67,8 +71,12 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     if backend is None:
         backend = ("cpu:gloo,cuda:nccl" if torch.cuda.is_available()
                    else "gloo")
+    card = int(os.environ.get("LOCAL_RANK", 0))
+    if local_device_ids is not None:
+        _mesh.LOCAL_DEVICE_IDS = [int(i) for i in local_device_ids]
+        card = _mesh.LOCAL_DEVICE_IDS[0]
     if "nccl" in backend:
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(card)
     init = (f"tcp://{coordinator_address}" if coordinator_address
             else "env://")
     dist.init_process_group(backend, init_method=init, rank=rank,
@@ -76,7 +84,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
 
 
 def shutdown():
-    """Leave the process group (no-op outside one)."""
+    """Leave the process group (no-op outside one) and forget
+    ``local_device_ids``."""
+    _mesh.LOCAL_DEVICE_IDS = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -135,16 +145,16 @@ def all_gather_blocks(block, dim=0):
     return torch.cat(parts).to(block.device).movedim(0, dim)
 
 
-def gather_to_host(x, n=None):
+def gather_to_host(arr, n=None):
     """The full value of an ensemble-sharded array as a NumPy array on every
-    process: ``x`` is this process's block (a tensor, or its shards in
+    process: ``arr`` is this process's block (a tensor, or its shards in
     order), all-gathered along the leading axis when a process group is up
     (every process must call this), then cut to ``n`` rows."""
-    if isinstance(x, (list, tuple)):
-        x = torch.cat([s.to(x[0].device) for s in x])
+    if isinstance(arr, (list, tuple)):
+        arr = torch.cat([s.to(arr[0].device) for s in arr])
     if dist.is_initialized():
-        x = all_gather_blocks(x)
-    return x[slice(n)].cpu().numpy()
+        arr = all_gather_blocks(arr)
+    return arr[slice(n)].cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +226,7 @@ def _selftest_worker(model_axis_size, devices):
     (:func:`host_chip_mesh`), against the same computation unsharded on
     this process's first device, at rtol 1e-12 and atol 1e-14.  Fails if
     ``jax`` or ``qgs_tpu`` got imported."""
-    from qgs_tpu_torch.host import QgParams
+    from qgs_tpu_torch.params.params import QgParams
     from qgs_tpu_torch.integrators.integrator import (
         RungeKuttaIntegrator, RungeKuttaTglsIntegrator)
     from qgs_tpu_torch.integrators.rk import make_rk_step, rk4_tableau

@@ -54,14 +54,23 @@ def is_distributed():
             and dist.get_world_size() > 1)
 
 
+# The card indices this process drives, where ``distributed.initialize``
+# was given ``local_device_ids``.
+LOCAL_DEVICE_IDS = None
+
+
 def local_devices():
-    """The devices this process drives: its card ``cuda:LOCAL_RANK`` in a
-    multi-process job started by ``torchrun``, else every visible card.
-    Without a card this raises: pass devices (``'cpu'``) explicitly."""
+    """The devices this process drives: the cards of ``local_device_ids``
+    where :func:`~qgs_tpu_torch.parallel.distributed.initialize` was given
+    them, else its card ``cuda:LOCAL_RANK`` in a multi-process job started
+    by ``torchrun``, else every visible card.  Without a card this raises:
+    pass devices (``'cpu'``) explicitly."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA card is visible: name the devices (for example "
             "ensemble_mesh(['cpu'] * 8)) to run on the CPU")
+    if LOCAL_DEVICE_IDS is not None:
+        return [torch.device("cuda", int(i)) for i in LOCAL_DEVICE_IDS]
     if is_distributed() and "LOCAL_RANK" in os.environ:
         return [torch.device("cuda", int(os.environ["LOCAL_RANK"]))]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -189,7 +189,7 @@ class ScalingParameter(float):
                              lambda a, b: a - b, rev=True)
 
     def __neg__(self):
-        return self._combine(0.0, -float(self), self._units, lambda a, b: a)
+        return self._combine(0.0, -float(self), self._units, lambda a, b: -a)
 
     def __pow__(self, p):
         se = self._expr()

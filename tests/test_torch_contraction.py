@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
-from qgs_tpu_torch.host import COO, QgParams
+from qgs_tpu_torch.params.params import QgParams
+from qgs_tpu_torch.utils.sparse import COO
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.ops.contraction import (MODES, from_numpy,
                                            make_tendency_fns, row_padded)

@@ -23,7 +23,12 @@ from qgs_tpu.inner_products.symbolic import (
 from qgs_tpu.params.params import QgParams as JaxQgParams
 from qgs_tpu.tensors import atmo_thermo as jax_atmo_thermo
 from qgs_tpu.tensors import qgtensor as jax_qgtensor
-from qgs_tpu_torch import host
+from qgs_tpu_torch.inner_products import analytic as port_analytic
+from qgs_tpu_torch.inner_products import symbolic as port_symbolic
+from qgs_tpu_torch.params.params import QgParams
+from qgs_tpu_torch.tensors import atmo_thermo as port_atmo_thermo
+from qgs_tpu_torch.tensors import qgtensor as port_qgtensor
+from qgs_tpu_torch.utils.sparse import COO
 
 
 def maooam(QgParams):
@@ -107,7 +112,7 @@ def dynamic_t(QgParams):
 def both_params(settings):
     """``(JAX package's QgParams, port's QgParams)`` from one settings
     function."""
-    return settings(JaxQgParams), settings(host.QgParams)
+    return settings(JaxQgParams), settings(QgParams)
 
 
 def _inner_products(pars, atm, ocean, ground_ip, symbolic_ips):
@@ -134,11 +139,11 @@ def _tensor(pars, atm, ocean, ground_ip, QgsTensor, symbolic_ips):
 
 JAX_IPS = {False: (JaxAtmAnalytic, JaxOceanAnalytic, JaxGroundAnalytic),
            True: (JaxAtmSymbolic, JaxOceanSymbolic, None)}
-PORT_IPS = {False: (host.AtmosphericAnalyticInnerProducts,
-                    host.OceanicAnalyticInnerProducts,
-                    host.GroundAnalyticInnerProducts),
-            True: (host.AtmosphericSymbolicInnerProducts,
-                   host.OceanicSymbolicInnerProducts, None)}
+PORT_IPS = {False: (port_analytic.AtmosphericAnalyticInnerProducts,
+                    port_analytic.OceanicAnalyticInnerProducts,
+                    port_analytic.GroundAnalyticInnerProducts),
+            True: (port_symbolic.AtmosphericSymbolicInnerProducts,
+                   port_symbolic.OceanicSymbolicInnerProducts, None)}
 
 CONFIGS = {"maooam": (maooam, 36), "rp": (rp, 20), "tlad": (tlad, 20),
            "ground": (ground, 30), "symbolic": (symbolic, 36),
@@ -182,7 +187,7 @@ def tensors(request):
     cls, rank = TENSORS.get(request.param, ("QgsTensor", 3))
     jax_pars, port_pars = both_params(settings)
     t_jax = _tensor(jax_pars, *JAX_IPS[sym], getattr(jax_qgtensor, cls), sym)
-    t_port = _tensor(port_pars, *PORT_IPS[sym], getattr(host, cls), sym)
+    t_port = _tensor(port_pars, *PORT_IPS[sym], getattr(port_qgtensor, cls), sym)
     return ndim, rank, jax_pars, port_pars, t_jax, t_port
 
 
@@ -190,7 +195,7 @@ def test_tendency_tensor_equal_bit_for_bit(tensors):
     ndim, rank, _, _, t_jax, t_port = tensors
     for name in ("tensor", "jacobian_tensor"):
         a, b = getattr(t_jax, name), getattr(t_port, name)
-        assert type(b) is host.COO
+        assert type(b) is COO
         assert tuple(b.shape) == tuple(a.shape) == (ndim + 1,) * rank
         assert b.nnz == a.nnz > 0
         assert np.array_equal(b.coords, a.coords)
@@ -221,11 +226,11 @@ def test_atmo_thermo_tensor_equal_bit_for_bit(config, cls):
     jax_pars, port_pars = both_params(settings)
     t_jax = getattr(jax_atmo_thermo, cls)(
         jax_pars, *_inner_products(jax_pars, *JAX_IPS[sym], sym))
-    t_port = getattr(host, cls)(
+    t_port = getattr(port_atmo_thermo, cls)(
         port_pars, *_inner_products(port_pars, *PORT_IPS[sym], sym))
     for name in ("tensor", "jacobian_tensor"):
         a, b = getattr(t_jax, name), getattr(t_port, name)
-        assert type(b) is host.COO
+        assert type(b) is COO
         assert tuple(b.shape) == tuple(a.shape)
         assert len(b.shape) == (3 if config == "maooam" else 5)
         assert b.nnz == a.nnz > 0
@@ -234,7 +239,13 @@ def test_atmo_thermo_tensor_equal_bit_for_bit(config, cls):
 
 
 def test_port_host_classes_are_its_own():
-    """The re-exported classes live in the port's modules."""
-    for name in host.__all__:
-        assert getattr(host, name).__module__.startswith("qgs_tpu_torch."), \
-            name
+    """The port's host classes live in the port's modules."""
+    classes = [QgParams, COO,
+               *(c for ips in PORT_IPS.values() for c in ips if c),
+               *(getattr(port_qgtensor, name) for name in (
+                   "QgsTensor", "QgsTensorDynamicT", "QgsTensorT4")),
+               *(getattr(port_atmo_thermo, name) for name in (
+                   "AtmoThermoTensor", "AtmoThermoTensorDynamicT",
+                   "AtmoThermoTensorT4"))]
+    for cls in classes:
+        assert cls.__module__.startswith("qgs_tpu_torch."), cls

@@ -19,7 +19,7 @@ from qgs_tpu_torch.integrators.rk import (infer_ndim, integrate_runge_kutta,
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.ops import fused_rk4
 
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 
 from tests.test_torch_host import both_params, maooam, rp
 

@@ -34,7 +34,7 @@ from qgs_tpu.integrators.integrator import (
     RungeKuttaIntegrator as JaxRungeKuttaIntegrator,
 )
 from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
 from qgs_tpu_torch.integrators.rk import (fused_route, rk2_tableau,
                                           rk4_tableau)

@@ -20,7 +20,7 @@ import torch
 from qgs_tpu.integrators.rk import integrate_runge_kutta as jax_integrate
 from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
 from qgs_tpu.toolbox import lyapunov as jl
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 from qgs_tpu_torch.integrators.integrator import (
     RungeKuttaIntegrator, RungeKuttaTglsIntegrator,
 )

@@ -23,7 +23,7 @@ import sys
 import pytest
 import torch
 
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 from qgs_tpu_torch.models.tendencies import create_tendencies
 
 from tests.test_torch_host import maooam
@@ -37,7 +37,7 @@ sys.modules["qgs_tpu"] = None      # and so does any of the JAX package
 import numpy as np
 import torch
 import qgs_tpu_torch
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
 
@@ -223,7 +223,7 @@ def test_no_port_source_imports_jax():
     assert pattern.search("import qgs_tpu.params\n")
     assert pattern.search("    from qgs_tpu import native\n")
     assert pattern.search("from jax import numpy\n")
-    assert not pattern.search("from qgs_tpu_torch.host import COO\n")
+    assert not pattern.search("from qgs_tpu_torch.utils.sparse import COO\n")
     sources = sorted((REPO / "qgs_tpu_torch").rglob("*.py"))
     assert len(sources) > 20
     offenders = [str(p) for p in sources + [REPO / "chip_smoke.py"]

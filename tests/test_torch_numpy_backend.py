@@ -10,7 +10,7 @@ import pytest
 
 from qgs_tpu.models import numpy_backend as jax_nb
 from qgs_tpu.tensors import qgtensor as jax_qgtensor
-from qgs_tpu_torch import host
+from qgs_tpu_torch.tensors import qgtensor as port_qgtensor
 from qgs_tpu_torch.models import numpy_backend as port_nb
 
 from tests.test_torch_host import (CONFIGS, JAX_IPS, PORT_IPS, SYMBOLIC,
@@ -24,7 +24,7 @@ def tensors(request):
     cls, rank = TENSORS.get(request.param, ("QgsTensor", 3))
     jax_pars, port_pars = both_params(settings)
     t_jax = _tensor(jax_pars, *JAX_IPS[sym], getattr(jax_qgtensor, cls), sym)
-    t_port = _tensor(port_pars, *PORT_IPS[sym], getattr(host, cls), sym)
+    t_port = _tensor(port_pars, *PORT_IPS[sym], getattr(port_qgtensor, cls), sym)
     assert t_port.tensor.rank == rank
     return ndim, t_jax, t_port
 

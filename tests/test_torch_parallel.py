@@ -31,7 +31,7 @@ from qgs_tpu.parallel.sharded_tendency import (
     make_sharded_tendency as jax_make_sharded_tendency,
 )
 from qgs_tpu.toolbox import lyapunov as jl
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 from qgs_tpu_torch.integrators.integrator import (
     RungeKuttaIntegrator, RungeKuttaTglsIntegrator,
 )

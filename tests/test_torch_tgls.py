@@ -34,7 +34,7 @@ from qgs_tpu.integrators.rk import rk4_tableau as jax_rk4_tableau
 from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
 from qgs_tpu.ops import contraction as jcon
 from qgs_tpu.ops import twofloat as jtf
-from qgs_tpu_torch.host import QgParams
+from qgs_tpu_torch.params.params import QgParams
 from qgs_tpu_torch.integrators.integrate import integrate_runge_kutta
 from qgs_tpu_torch.integrators.integrator import (
     RungeKuttaTglsIntegrator, same_model_jacobian,

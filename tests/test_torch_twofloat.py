@@ -28,7 +28,7 @@ from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
 from qgs_tpu.ops import twofloat as jtf
 from qgs_tpu.ops.pallas_kernels import make_pallas_df_rk4
 from qgs_tpu.params.params import QgParams
-from qgs_tpu_torch.host import QgParams as PortQgParams
+from qgs_tpu_torch.params.params import QgParams as PortQgParams
 from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
 from qgs_tpu_torch.integrators.rk import integrate_runge_kutta_df, rk2_tableau
 from qgs_tpu_torch.models.tendencies import create_tendencies
