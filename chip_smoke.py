@@ -11,8 +11,9 @@ through the fused RK4 kernel and with ``precision="twofloat"`` through the
 fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
 
 1. device: a CUDA card is required; prints the card's name and power limit;
-2. build: compiles ``qgs_tpu_torch/csrc/rk4_fused.cu`` and
-   ``rk4_df_fused.cu`` with nvcc (sm_90a), in parallel;
+2. build: compiles ``qgs_tpu_torch/csrc/rk4_fused.cu``,
+   ``rk4_df_fused.cu``, ``rk4_streamed.cu`` and ``rk4_df_streamed.cu``
+   with nvcc (sm_90a), in parallel;
 3. each kernel against its plain PyTorch version on the card, for every
    choice of row groups G at B = 1, 31, 1000 and 4097 (the RK4 kernel in
    float64 and float32, the double-float one on pairs), and the
@@ -81,13 +82,21 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    its catalog names, the rank-5 and symbolic ones neither), and each held
    against the same call on the CPU at its module's tolerances;
 12. models past one block's shared memory (MAOOAM 4x4/4x4, ndim 104, and
-   6x6/6x6, ndim 228): the Python twins of the kernels' shared-memory
-   formulas against the compiled ones and the card's opt-in limit; ndim
-   104 in float64 and float32 through K1 (one launch each) against the
-   plain float64 version, in twofloat and ndim 228 in float64 through the
-   plain step loop (no launch), each against the CPU on 8 members and
-   timed; K1 at ndim 104 against its plain version at B = 1, 31, 4097 and
-   timed at B = 4096; direct launches of layouts too large raising;
+   6x6/6x6, ndim 228): the Python twins of the four kernels'
+   shared-memory formulas against the compiled ones and the card's opt-in
+   limit, and the kernel each precision takes; ndim 104 in float64 and
+   float32 through the resident K1, in twofloat through the streamed K2,
+   ndim 228 in float64 and float32 through the streamed K1 (one launch
+   each), each against the plain float64 version in full and against the
+   CPU on 8 members (float32 at ndim 228 for 200 steps: at ``TOL32`` over
+   its first 100, then no further from float64 than the plain float32
+   version), and timed; K1 at ndim 104 against its plain version
+   at B = 1, 31, 4097; the streamed kernels forced at ndim 36 (B = 4097)
+   and 104, bit-equal to the resident ones, and at ndim 228 against their
+   plain versions; times and bounds of the streamed kernels at phase 12's
+   shapes, the resolution sweep's Pallas sizes and B = 4096, and of K1 at
+   ndim 104 resident and streamed;
+   launches that cannot run raising;
 13. the long-horizon climate gate: 4 MAOOAM attractor members from the
    port's native float64 oracle, 120,000 steps of dt 0.1 (a record every
    10) by the oracle and by ``RungeKuttaIntegrator.integrate`` on the card
@@ -100,7 +109,8 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
 Every failed phase exits nonzero before the last line, which is one JSON
 object ``{"ok": true, "device": {...}}``; the line before it holds each
 kernel's numbers, ``{"kernels": [...]}`` (``launches`` those of the main
-paths of phases 4, 9, 10, 11, 12 and 13), the one before that phase 13's
+paths of phases 4, 9, 10, 11, 12 and 13; the streamed kernels run on phase
+12's paths only), the one before that phase 13's
 numbers, ``{"fidelity": {...}}``, the one before that phase 12's
 numbers, ``{"large_models": {...}}``, the one before that phase 11's,
 ``{"examples": {...}}``, the one before that phase 10's,
@@ -155,6 +165,50 @@ def check_close(name, got, ref, tol):
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+# float32 past TOL32's 100 steps: a kernel's gap to plain float64 at most
+# this many times the plain float32 version's own gap, record by record (on
+# the CPU two float32 runs in different summation orders came within 1.8
+# times of each other's gap at MAOOAM ndim 228 over 200 steps, 8 members)
+F32_DRIFT = 3.0
+
+
+def check_f32_drift(name, got, ref64, ref32, every):
+    """A float32 trajectory ``got`` (B, n, a record every ``every`` steps)
+    run past ``TOL32``'s 100 steps: its records of the first 100 steps held
+    to the plain float64 ``ref64`` at ``TOL32``, and every record no further
+    from ``ref64`` than ``F32_DRIFT`` times the plain float32 run
+    ``ref32``'s own gap (``TOL32``'s atol where that is smaller).  Prints
+    and returns the three gaps a record."""
+    got, ref64, ref32 = (a.double().cpu().numpy() for a in (got, ref64,
+                                                            ref32))
+    if got.shape != ref64.shape or got.shape != ref32.shape:
+        fail(f"{name}: shapes {got.shape}, {ref64.shape}, {ref32.shape}")
+    if not np.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    steps = np.arange(got.shape[-1]) * every
+    early = steps <= 100
+    ok_early = np.allclose(got[..., early], ref64[..., early], **TOL32)
+    gap_k, gap_p, gap_kp = (np.abs(a - b).max(axis=(0, 1)) for a, b in (
+        (got, ref64), (ref32, ref64), (got, ref32)))
+    ok = ok_early and bool(
+        (gap_k <= np.maximum(F32_DRIFT * gap_p, TOL32["atol"])).all())
+    print(f"  {name}: steps 0-100 vs plain f64 (rtol {TOL32['rtol']}, atol "
+          f"{TOL32['atol']}) {'ok' if ok_early else 'MISMATCH'}; gap to "
+          f"plain f64 a record {', '.join(f'{g:.3e}' for g in gap_k)}; the "
+          f"plain f32 run's {', '.join(f'{g:.3e}' for g in gap_p)}; gap to "
+          f"plain f32 {', '.join(f'{g:.3e}' for g in gap_kp)} (at most "
+          f"{F32_DRIFT} x the plain f32 gap) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        fail(f"{name}: float32 kernel drifts from float64 beyond float32's "
+             "own drift")
+    return {"steps": steps.tolist(), "gap_to_plain_f64": gap_k.tolist(),
+            "plain_f32_gap_to_plain_f64": gap_p.tolist(),
+            "gap_to_plain_f32": gap_kp.tolist(),
+            "max_abs_err": float(gap_k.max()),
+            "max_abs_err_vs_f32": float(gap_kp.max())}
 
 
 def cuda_ms(fn):
@@ -1824,25 +1878,38 @@ def resolution_params(QgParams, ndim):
 def large_models_phase(card, dev):
     """12. Models past one block's shared memory: (a) the Python twins of
     the launchers' shared-memory formulas (``fused_rk4.smem_bytes``,
-    ``fused_df_rk4.df_smem_bytes``) against the compiled ones, at ndim 36,
-    104 and 228 for K1 in float64 and float32 and for K2, and the route
-    each model takes under the card's opt-in limit; (b) the 4x4/4x4
-    (ndim 104) paths through ``RungeKuttaIntegrator.integrate``: float64
-    (B = 4096, 1000 steps, one K1 launch) and float32 (B = 4096, 100
-    steps, one K1 launch), each held in full against the plain float64
-    version on the card, and twofloat (B = 1024, 200 steps, the plain
-    double-float loop, no K2 launch); (c) 6x6/6x6 (ndim 228) float64 (B =
-    1024, 200 steps, the plain loop, no K1 launch); each run held against
-    the CPU on its first 8 members (``TOL64``, ``TOL32`` for float32) and
-    timed by the host clock; (d) K1 at ndim 104 against ``group_tendency``,
-    its plain version in its own summation order, at B = 1, 31 and 4097;
-    (e) the times of K1 alone (float64 and float32) and of its plain
-    version at B = 4096 x 1000 steps, with K1's bound; the float32
-    kernel's gap to plain float64 every 100 of 1000 steps; the host time
-    of the size check on MAOOAM-36 against ``group_layout``'s; (f) direct
-    launches of K2 at ndim 104 and of K1 at ndim 228 raising.  Checks
-    ``fail`` the run.  Returns the numbers and the launches of the paths,
-    by kernel."""
+    ``fused_df_rk4.df_smem_bytes`` and the streamed kernels'
+    ``streamed_smem_bytes``, ``df_streamed_smem_bytes``) against the
+    compiled ones, at ndim 36, 104 and 228, and the kernel each precision
+    takes under the card's opt-in limit; (b) the 4x4/4x4 (ndim 104) paths
+    through ``RungeKuttaIntegrator.integrate``: float64 (B = 4096, 1000
+    steps) and float32 (B = 4096, 100 steps) through the resident K1, and
+    twofloat (B = 1024, 200 steps) through the streamed K2; (c) 6x6/6x6
+    (ndim 228) float64 and float32 (B = 1024, 200 steps) through the
+    streamed K1; one launch each, ``fused_route`` true, each held in full
+    against the plain float64 version on the card (``TOL64``, ``TOL32``
+    for float32) and against the CPU on its first 8 members, and timed by
+    the host clock.  ``TOL32`` is a tolerance of 100 steps: float32 at
+    ndim 228 is held to it over its first 100 steps, and over all 200 to
+    the plain float32 version's own gap to float64 (``check_f32_drift``);
+    (d) K1 at ndim 104 against ``group_tendency``, its
+    plain version in its own summation order, at B = 1, 31 and 4097; the
+    streamed kernels forced at ndim 36 (B = 4097, float64, float32,
+    twofloat) and 104 (float64, float32), bit-equal to the resident ones;
+    the streamed kernels at ndim 228 against their plain versions at B =
+    1, 31, 1000; (e) times: K1 alone (float64 and float32, resident and
+    streamed) and its plain version at B = 4096 x 1000 steps at ndim 104;
+    the streamed kernels and their plain versions at phase 12's shapes (B
+    = 1024 x 200 steps), at the resolution sweep's Pallas sizes (ndim 104
+    at B = 2048 x 500 steps, ndim 228 at B = 1024 x 100) and at ndim 228
+    float64 B = 4096 x 100 (how far the card is filled), each with its
+    bound; the float32 kernel's gap to plain float64 every 100 of 1000
+    steps; the
+    host time of the size check on MAOOAM-36 against ``group_layout``'s;
+    (f) forced launches of the resident kernels where they do not fit,
+    and launches of a synthetic tensor past both kernels' limits (n1 =
+    600, float64 and twofloat), raising.  Checks ``fail`` the run.
+    Returns the numbers and the launches of the paths, by kernel."""
     import torch
     from qgs_tpu_torch.params.params import QgParams
     from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
@@ -1850,17 +1917,29 @@ def large_models_phase(card, dev):
                                               time_grid)
     from qgs_tpu_torch.models.tendencies import create_tendencies
     from qgs_tpu_torch.ops import _build, fused_df_rk4, fused_rk4
-    from qgs_tpu_torch.ops.twofloat import DfTendency, df_from_f64
+    from qgs_tpu_torch.ops.contraction import from_numpy
+    from qgs_tpu_torch.ops.twofloat import DfTendency, df_from_f64, df_to_f64
 
     start = time.perf_counter()
     lib = _build.load_library()
     limit = _build.max_smem_optin(dev)
     G = fused_rk4.DEFAULT_GROUPS
-    out = {"card": card, "smem_optin_bytes": limit, "twins": {}}
-    print(f"[12] the card's opt-in shared memory a block: {limit} bytes; "
-          f"{card}", flush=True)
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    smem_sm = getattr(props, "shared_memory_per_multiprocessor", None)
+    out = {"card": card, "smem_optin_bytes": limit, "sms": sms,
+           "smem_per_sm_bytes": smem_sm, "twins": {}}
+    print(f"[12] the card's opt-in shared memory a block: {limit} bytes, "
+          f"{smem_sm} an SM, {sms} SMs; {card}", flush=True)
+    precisions = {"float64": torch.float64, "float32": torch.float32,
+                  "twofloat": torch.float32}
 
-    # -- a) the twins against the compiled formulas, and the routes --------
+    def kernel_of(f, precision):
+        choose = (fused_df_rk4.df_choose_kernel if precision == "twofloat"
+                  else fused_rk4.choose_kernel)
+        return choose(f, precisions[precision], dev)
+
+    # -- a) the twins against the compiled formulas, and the kernels -------
     models = {}
     for ndim in LARGE_BLOCKS:
         pars = resolution_params(QgParams, ndim)
@@ -1878,53 +1957,92 @@ def large_models_phase(card, dev):
                                                    torch.float32),
                               lib.qgs_rk4_fused_smem_bytes(n1, G, width, 0)),
             "rk4_df_fused": (fused_df_rk4.df_smem_bytes(n1, G, width),
-                             lib.qgs_rk4_df_fused_smem_bytes(n1, G, width))}
+                             lib.qgs_rk4_df_fused_smem_bytes(n1, G, width)),
+            "rk4_streamed_f64": (
+                fused_rk4.streamed_smem_bytes(n1, G, torch.float64),
+                lib.qgs_rk4_streamed_smem_bytes(n1, G, 1)),
+            "rk4_streamed_f32": (
+                fused_rk4.streamed_smem_bytes(n1, G, torch.float32),
+                lib.qgs_rk4_streamed_smem_bytes(n1, G, 0)),
+            "rk4_df_streamed": (fused_df_rk4.df_streamed_smem_bytes(n1, G),
+                                lib.qgs_rk4_df_streamed_smem_bytes(n1, G))}
         for name, (py, c) in twins.items():
             if py != c:
                 fail(f"ndim {ndim} {name}: the Python twin gives {py} bytes, "
                      f"the compiled formula {c}")
+        kernels = {p: kernel_of(fb, p) for p in precisions}
+        for p, got in kernels.items():
+            sfx = {"float64": "_f64", "float32": "_f32", "twofloat": ""}[p]
+            resident = ("rk4_df_fused" if p == "twofloat"
+                        else "rk4_fused") + sfx
+            streamed = ("rk4_df_streamed" if p == "twofloat"
+                        else "rk4_streamed") + sfx
+            want = ("resident" if twins[resident][0] <= limit else
+                    "streamed" if twins[streamed][0] <= limit else None)
+            if got != want:
+                fail(f"ndim {ndim} {p}: kernel {got}, the bytes say {want}")
         y = torch.zeros((1, ndim), dtype=torch.float64, device=dev)
-        routes = {"rk4_fused_f64": fused_route(fb, y, rk4_tableau()),
-                  "rk4_df_fused": fused_route(
+        routes = {"float64": fused_route(fb, y, rk4_tableau()),
+                  "twofloat": fused_route(
                       DfTendency(fb.coords, fb.data, fb.shape, device=dev),
                       df_from_f64(y), rk4_tableau())}
-        for name, fused in routes.items():
-            if fused != (twins[name][0] <= limit):
-                fail(f"ndim {ndim}: {name} routed {'to' if fused else 'past'}"
-                     f" the kernel for {twins[name][0]} bytes of {limit}")
+        if not all(routes.values()):
+            fail(f"ndim {ndim}: fused_route {routes}, a kernel fits")
         out["twins"][ndim] = {"nnz": len(fb.data), "width": width,
                               "bytes": {k: v[0] for k, v in twins.items()},
-                              "kernel_route": routes}
+                              "kernel": kernels}
         print(f"[12] ndim {ndim}, nnz {len(fb.data)}, width {width}: bytes "
               f"{ {k: v[0] for k, v in twins.items()} } equal to the "
-              f"compiled formulas; kernel route {routes}", flush=True)
+              f"compiled formulas; kernels {kernels}", flush=True)
+
+    names = ("rk4_fused", "rk4_df_fused", "rk4_streamed", "rk4_df_streamed")
 
     def counts():
-        return {"rk4_fused": fused_rk4.launches,
-                "rk4_df_fused": fused_df_rk4.launches}
+        return dict(zip(names, (fused_rk4.launches, fused_df_rk4.launches,
+                                fused_rk4.launches_streamed,
+                                fused_df_rk4.launches_streamed)))
+
+    def zero_counts():
+        fused_rk4.launches = fused_df_rk4.launches = 0
+        fused_rk4.launches_streamed = fused_df_rk4.launches_streamed = 0
+
+    def expect(kernel):
+        return {k: int(k == kernel) for k in names}
 
     # -- b, c) the paths through the integrator -----------------------------
     f64_104 = models[104][1]
     f32_104, _ = create_tendencies(models[104][0], dtype=torch.float32,
                                    device=dev)
+    f64_228 = models[228][1]
+    f32_228, _ = create_tendencies(models[228][0], dtype=torch.float32,
+                                   device=dev)
     # name: (ndim, tendency, precision, B, t, write_steps, tolerance, the
-    # launches expected)
+    # kernel expected)
     runs = {
         "ndim104_float64": (104, f64_104, "float64", 4096, 100., 100, TOL64,
-                            {"rk4_fused": 1, "rk4_df_fused": 0}),
+                            "rk4_fused"),
         "ndim104_float32": (104, f32_104, "float64", 4096, 10., 10, TOL32,
-                            {"rk4_fused": 1, "rk4_df_fused": 0}),
+                            "rk4_fused"),
         "ndim104_twofloat": (104, f64_104, "twofloat", 1024, 20., 20, TOL64,
-                             {"rk4_fused": 0, "rk4_df_fused": 0}),
-        "ndim228_float64": (228, models[228][1], "float64", 1024, 20., 20,
-                            TOL64, {"rk4_fused": 0, "rk4_df_fused": 0})}
-    launches = {"rk4_fused": 0, "rk4_df_fused": 0}
-    for name, (ndim, f, precision, B, t_end, w, tol, expect) in runs.items():
+                             "rk4_df_streamed"),
+        "ndim228_float64": (228, f64_228, "float64", 1024, 20., 20, TOL64,
+                            "rk4_streamed"),
+        "ndim228_float32": (228, f32_228, "float64", 1024, 20., 20, TOL32,
+                            "rk4_streamed")}
+    launches = dict.fromkeys(names, 0)
+    plain64 = {}
+    for name, (ndim, f, precision, B, t_end, w, tol, kernel) in runs.items():
         ic = np.random.default_rng(ndim).random((B, ndim)) * 0.01
         integrator = RungeKuttaIntegrator(precision=precision)
         integrator.set_func(f)
+        y0 = torch.as_tensor(ic, device=dev, dtype=f.batched.dtype)
+        state = df_from_f64(y0) if precision == "twofloat" else y0
+        fb = (DfTendency(f.batched.coords, f.batched.data, f.batched.shape,
+                         device=dev) if precision == "twofloat"
+              else f.batched)
+        routed = fused_route(fb, state, rk4_tableau())
         torch.cuda.synchronize()
-        fused_rk4.launches = fused_df_rk4.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         integrator.integrate(0., t_end, 0.1, ic=ic, write_steps=w)
         t, traj = integrator.get_trajectories()
@@ -1933,8 +2051,9 @@ def large_models_phase(card, dev):
         got = counts()
         for k in launches:
             launches[k] += got[k]
-        if got != expect:
-            fail(f"{name}: launches {got}, expected {expect}")
+        if got != expect(kernel) or not routed:
+            fail(f"{name}: launches {got}, fused_route {routed}; expected "
+                 f"one launch of {kernel}")
         steps = int(round(t_end / 0.1))
         if (tuple(traj.shape) != (B, ndim, steps // w + 1)
                 or not torch.isfinite(traj).all()):
@@ -1942,37 +2061,56 @@ def large_models_phase(card, dev):
                  f"{bool(torch.isfinite(traj).all())}")
         res = out[name] = {"B": B, "steps": steps, "seconds": secs,
                            "traj_steps_per_s": B * steps / secs,
-                           "launches": got}
-        if name.endswith(("float64", "float32")) and ndim == 104:
-            # the plain float64 version at the same shapes, in full
+                           "launches": got, "fused_route": routed}
+        # the plain float64 version at the same shapes, in full
+        key = (ndim, B, t_end, w)
+        if key not in plain64:
             dts = torch.as_tensor(np.diff(time_grid(0., t_end, 0.1)),
                                   device=dev)
-            y0 = torch.as_tensor(ic, device=dev)
-            _, rr = fused_rk4.fused_rk4_reference(f64_104.batched, y0, dts, w)
-            ref = torch.movedim(torch.cat([y0[None], rr]), 0, -1)
-            res["max_abs_err_vs_plain_f64"] = check_close(
-                f"[12] {name} B={B} {steps} steps, all records, vs plain f64",
-                traj, ref, tol)
-            if name == "ndim104_float64":
-                plain64 = (y0, dts, rr)
+            y64 = torch.as_tensor(ic, device=dev)
+            _, rr = fused_rk4.fused_rk4_reference(models[ndim][1].batched,
+                                                  y64, dts, w)
+            plain64[key] = (y64, dts, rr)
+        y64, dts64, rr = plain64[key]
+        ref = torch.movedim(torch.cat([y64[None], rr]), 0, -1)
         # the CPU's run of the first 8 members
         f_cpu = models[ndim][2]
         if name.endswith("float32"):
-            f_cpu, _ = create_tendencies(models[104][0], dtype=torch.float32,
-                                         device="cpu")
+            f_cpu, _ = create_tendencies(models[ndim][0],
+                                         dtype=torch.float32, device="cpu")
         cpu = RungeKuttaIntegrator(precision=precision)
         cpu.set_func(f_cpu)
         cpu.integrate(0., t_end, 0.1, ic=ic[:8], write_steps=w)
         t_cpu, traj_cpu = cpu.get_trajectories()
         if not np.array_equal(np.asarray(t), np.asarray(t_cpu)):
             fail(f"{name}: record times differ from the CPU's")
-        res["max_abs_err_vs_cpu"] = check_close(
-            f"[12] {name} members 0-7 vs the CPU", traj[:8], traj_cpu, tol)
+        if tol is not TOL32 or steps <= 100:
+            res["max_abs_err_vs_plain_f64"] = check_close(
+                f"[12] {name} B={B} {steps} steps, all records, vs plain "
+                "f64", traj, ref, tol)
+            res["max_abs_err_vs_cpu"] = check_close(
+                f"[12] {name} members 0-7 vs the CPU", traj[:8], traj_cpu,
+                tol)
+        else:
+            # float32 past TOL32's 100 steps: the plain float32 version on
+            # the card, the same start and steps, witnesses float32's drift
+            _, r32 = fused_rk4.fused_rk4_reference(f.batched, y64.float(),
+                                                   dts64, w)
+            plain32 = torch.movedim(torch.cat([y64.float()[None], r32]), 0,
+                                    -1)
+            res["vs_plain_f64"] = check_f32_drift(
+                f"[12] {name} B={B}", traj, ref, plain32, w)
+            res["max_abs_err_vs_plain_f64"] = \
+                res["vs_plain_f64"]["max_abs_err"]
+            res["vs_cpu"] = check_f32_drift(
+                f"[12] {name} members 0-7 vs the CPU's float32 run", traj[:8],
+                ref[:8], traj_cpu, w)
+            res["max_abs_err_vs_cpu"] = res["vs_cpu"]["max_abs_err_vs_f32"]
         print(f"[12] {name}: integrate B={B} x {steps} steps in "
               f"{secs * 1e3:.3f} ms ({res['traj_steps_per_s']:.4g} "
               f"traj-steps/s), launches {got}; {card}", flush=True)
 
-    # -- d) K1 at ndim 104 against its plain version in its order ------------
+    # -- d) the kernels against their plain versions -------------------------
     f104 = f64_104.batched
     layout = fused_rk4.group_layout(f104.coords, f104.data, f104.shape, G)
     dts = torch.as_tensor(np.diff(time_grid(0., 30.05, 0.1)), device=dev)
@@ -1999,14 +2137,85 @@ def large_models_phase(card, dev):
     out["k1_max_abs_err"] = max(errs)
     out["k1_f32_max_abs_err"] = max(errs32)
 
-    # -- e) K1 alone and its plain version at B = 4096 x 1000 steps --------
+    # the streamed kernels forced where the resident ones run, bit for bit
+    # (301 steps with a shorter last one, a record every 7)
+    def forced(f, precision, y, d, kernel, w=7):
+        if precision == "twofloat":
+            fdf = DfTendency(f.coords, f.data, f.shape, device=dev)
+            got, recs = fused_df_rk4._launch(kernel, fdf, *df_from_f64(y), d,
+                                             w)
+            return torch.stack(got), torch.stack(recs)
+        if precision == "float32":
+            f = from_numpy(f.coords, f.data, f.shape, torch.float32, dev)
+            y = y.float()
+        return fused_rk4._launch(kernel, f, y, d, w)
+
+    bit_equal = {}
+    for ndim, precision in ((36, "float64"), (36, "float32"),
+                            (36, "twofloat"), (104, "float64"),
+                            (104, "float32")):
+        B = 4097
+        yg = torch.as_tensor(np.random.default_rng(ndim).random((B, ndim))
+                             * 0.01, device=dev)
+        fb = models[ndim][1].batched
+        res_ = forced(fb, precision, yg, dts, "resident")
+        got = forced(fb, precision, yg, dts, "streamed")
+        same = all(torch.equal(a, b) for a, b in zip(got, res_))
+        bit_equal[f"ndim{ndim}_{precision}"] = same
+        print(f"[12] streamed == resident, ndim {ndim} {precision} B={B} 301 "
+              f"steps, final and records every 7: {same}", flush=True)
+        if not same:
+            fail(f"the streamed kernel differs from the resident one at ndim "
+                 f"{ndim} {precision}")
+    out["streamed_bit_equal_to_resident"] = bit_equal
+
+    # the streamed kernels at ndim 228 against their plain versions: float64
+    # and float32 against K1's order (group_tendency in float64), twofloat
+    # against the plain double-float loop (DfTendency)
+    f228 = f64_228.batched
+    layout228 = fused_rk4.group_layout(f228.coords, f228.data, f228.shape, G)
+    fdf228 = DfTendency(f228.coords, f228.data, f228.shape, device=dev)
+    dts50 = dts[:50].contiguous()
+    s_errs = {"rk4_streamed": [], "rk4_streamed_f32": [],
+              "rk4_df_streamed": []}
+    for B in (1, 31, 1000):
+        yg = torch.as_tensor(np.random.default_rng(B).random((B, 228)) * 0.01,
+                             device=dev)
+        yr, rr = fused_rk4.fused_rk4_reference(
+            lambda t, x: fused_rk4.group_tendency(layout228, x), yg, dts50, 7)
+        yk, rk = forced(f228, "float64", yg, dts50, None)
+        s_errs["rk4_streamed"] += [
+            check_close(f"[12] streamed K1 f64 ndim 228 B={B} 50 steps final "
+                        "vs group_tendency", yk, yr, TOL64),
+            check_close(f"[12] streamed K1 f64 ndim 228 B={B} records every 7"
+                        " vs group_tendency", rk, rr, TOL64)]
+        yk32, _ = forced(f228, "float32", yg, dts50, None)
+        s_errs["rk4_streamed_f32"].append(check_close(
+            f"[12] streamed K1 f32 ndim 228 B={B} 50 steps vs f64 "
+            "group_tendency", yk32, yr, TOL32))
+        ydf = df_from_f64(yg)
+        (dr, drr) = fused_df_rk4.fused_df_rk4_reference(fdf228, *ydf, dts50,
+                                                        7)
+        dk, dkr = forced(f228, "twofloat", yg, dts50, None)
+        s_errs["rk4_df_streamed"] += [
+            check_close(f"[12] streamed K2 ndim 228 B={B} 50 steps final vs "
+                        "plain df", df_to_f64(tuple(dk)), df_to_f64(dr),
+                        TOL64),
+            check_close(f"[12] streamed K2 ndim 228 B={B} records every 7 vs"
+                        " plain df", df_to_f64(tuple(dkr)), df_to_f64(drr),
+                        TOL64)]
+    out["streamed_max_abs_err"] = {k: max(v) for k, v in s_errs.items()}
+
+    # -- e) times ------------------------------------------------------------
     B, steps = 4096, 1000
     yb = torch.as_tensor(np.random.default_rng(2).random((B, 104)) * 0.01,
                          device=dev)
     dts_b = torch.full((steps,), 0.1, dtype=torch.float64, device=dev)
-    k64 = [cuda_ms(lambda: fused_rk4.fused_rk4(f104, yb, dts_b))
-           for _ in range(2)]
     yb32 = yb.float()
+    k64, s64 = [], []
+    for kernel in ("resident", "streamed", "streamed", "resident"):
+        (k64 if kernel == "resident" else s64).append(cuda_ms(
+            lambda: fused_rk4._launch(kernel, f104, yb, dts_b)))
     k32 = [cuda_ms(lambda: fused_rk4.fused_rk4(f32_104.batched, yb32, dts_b))
            for _ in range(2)]
     plain = cuda_ms(lambda: fused_rk4.fused_rk4_reference(f104, yb, dts_b))
@@ -2015,19 +2224,89 @@ def large_models_phase(card, dev):
     out["k1_ndim104"] = {
         "shape": f"B={B} n=104 steps={steps}, G={G}",
         "ms": min(k64), "runs_ms": k64, "f32_ms": min(k32), "f32_runs_ms": k32,
+        "streamed_ms": min(s64), "streamed_runs_ms": s64,
         "plain_ms": plain, "bound_ms": b64[0], "bound_by": b64[1],
-        "share_of_bound": b64[0] / min(k64), "f32_bound_ms": b32[0],
+        "share_of_bound": b64[0] / min(k64),
+        "streamed_share_of_bound": b64[0] / min(s64), "f32_bound_ms": b32[0],
         "f32_share_of_bound": b32[0] / min(k32)}
-    print(f"[12] K1 ndim 104 B={B} {steps} steps: f64 {min(k64):.3f} ms "
-          f"(runs {k64[0]:.3f}/{k64[1]:.3f}), f32 {min(k32):.3f} ms, plain "
+    print(f"[12] K1 ndim 104 B={B} {steps} steps: f64 resident {min(k64):.3f}"
+          f" ms (runs {k64[0]:.3f}/{k64[1]:.3f}), streamed {min(s64):.3f} ms "
+          f"(runs {s64[0]:.3f}/{s64[1]:.3f}), f32 {min(k32):.3f} ms, plain "
           f"f64 {plain:.3f} ms; bound f64 {b64[0]:.3f} ms ({b64[1]}), share "
-          f"{b64[0] / min(k64):.4f}, f32 {b32[0]:.3f} ms, share "
-          f"{b32[0] / min(k32):.4f}; {card}", flush=True)
+          f"resident {b64[0] / min(k64):.4f}, streamed {b64[0] / min(s64):.4f}"
+          f", f32 {b32[0]:.3f} ms, share {b32[0] / min(k32):.4f}; {card}",
+          flush=True)
+
+    # the streamed kernels (and the resident ones where they run) at phase
+    # 12's shapes, the resolution sweep's Pallas sizes and B = 4096 at ndim
+    # 228: kernel (better of two), plain version (one run), bound, how
+    # many blocks the card holds
+    def blocks_per_sm(smem):
+        return None if smem_sm is None else smem_sm // (smem + 1024)
+
+    timed = {}
+    for ndim, precision, B, steps in (
+            (104, "twofloat", 1024, 200), (228, "float64", 1024, 200),
+            (228, "float32", 1024, 200),
+            (104, "float64", 2048, 500), (104, "float32", 2048, 500),
+            (104, "twofloat", 2048, 500), (228, "float64", 1024, 100),
+            (228, "float32", 1024, 100), (228, "twofloat", 1024, 100),
+            (228, "float64", 4096, 100)):
+        fb = models[ndim][1].batched
+        fk = (from_numpy(fb.coords, fb.data, fb.shape, torch.float32, dev)
+              if precision == "float32" else fb)
+        y = torch.as_tensor(np.random.default_rng(B).random((B, ndim))
+                            * 0.01, device=dev)
+        d = torch.full((steps,), 0.1, dtype=torch.float64, device=dev)
+        kernel = kernel_of(fb, precision)
+        width = fused_rk4.row_groups(fb.coords, ndim + 1, G).width
+        if precision == "twofloat":
+            fdf = DfTendency(fb.coords, fb.data, fb.shape, device=dev)
+            ydf = df_from_f64(y)
+            run = lambda: fused_df_rk4.fused_df_rk4(fdf, *ydf, d)
+            run_plain = lambda: fused_df_rk4.fused_df_rk4_reference(
+                fdf, *ydf, d)
+            work = df_rk4_work(B, ndim, fb.coords, steps)
+            smem = (fused_df_rk4.df_streamed_smem_bytes(ndim + 1, G)
+                    if kernel == "streamed" else fused_df_rk4.df_smem_bytes(
+                        ndim + 1, G, width))
+        else:
+            yk = y.to(fk.dtype)
+            run = lambda: fused_rk4.fused_rk4(fk, yk, d)
+            run_plain = lambda: fused_rk4.fused_rk4_reference(fk, yk, d)
+            work = rk4_work(B, ndim, fb.coords, steps,
+                            4 if precision == "float32" else 8)
+            smem = (fused_rk4.streamed_smem_bytes(ndim + 1, G, fk.dtype)
+                    if kernel == "streamed" else fused_rk4.smem_bytes(
+                        ndim + 1, G, width, fk.dtype))
+        b_ms, b_by = bound(*work, PEAK_FLOPS["f64" if precision == "float64"
+                                             else "f32"])
+        before = counts()
+        ms = best_ms(run)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        want = ("rk4_df_" if precision == "twofloat" else "rk4_") + (
+            "streamed" if kernel == "streamed" else "fused")
+        if launched[want] != 3 or sum(launched.values()) != 3:
+            fail(f"ndim {ndim} {precision}: timed launches {launched}, "
+                 f"expected 3 of {want}")
+        plain_ms = cuda_ms(run_plain)
+        blocks = -(-B // 32)
+        per_sm = blocks_per_sm(smem)
+        row = timed[f"ndim{ndim}_{precision}_B{B}_x{steps}"] = {
+            "kernel": want, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "smem_bytes": smem, "blocks": blocks, "blocks_per_sm": per_sm,
+            "sms_busy_share": min(blocks, sms) / sms}
+        print(f"[12] {want} ndim {ndim} {precision} B={B} x {steps} steps: "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}), share {b_ms / ms:.4f}; {blocks} blocks of {smem} B "
+              f"({per_sm} an SM) on {sms} SMs; {card}", flush=True)
+    out["times"] = timed
 
     # the float32 kernel's gap to float64 along 1000 steps at ndim 104 (the
     # float64 path's start and plain records; held at TOL32 over 100 steps
     # above, reported past them)
-    y0, dts, rr = plain64
+    y0, dts, rr = plain64[(104, 4096, 100., 100)]
     _, r32 = fused_rk4.fused_rk4(f32_104.batched, y0.float(), dts, 100)
     growth = [float((a.double() - b).abs().max()) for a, b in zip(r32, rr)]
     out["k1_f32_gap_every_100_steps"] = growth
@@ -2040,34 +2319,56 @@ def large_models_phase(card, dev):
     f36 = models[36][1].batched
     t0 = time.perf_counter()
     for _ in range(1000):
-        fused_rk4.fits(f36, torch.float64, dev)
+        fused_rk4.choose_kernel(f36, torch.float64, dev)
     fits_us = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     for _ in range(100):
         fused_rk4.group_layout(f36.coords, f36.data, f36.shape, G)
     layout_us = (time.perf_counter() - t0) * 1e4
-    out["host_us"] = {"fits_ndim36": fits_us, "group_layout_ndim36": layout_us}
-    print(f"[12] host time a call on ndim 36: fits {fits_us:.1f} us, "
-          f"group_layout {layout_us:.1f} us; {card}", flush=True)
+    out["host_us"] = {"choose_kernel_ndim36": fits_us,
+                      "group_layout_ndim36": layout_us}
+    print(f"[12] host time a call on ndim 36: choose_kernel {fits_us:.1f} us,"
+          f" group_layout {layout_us:.1f} us; {card}", flush=True)
 
-    # -- f) direct launches of layouts that do not fit raise ----------------
+    # -- f) launches that cannot run raise ---------------------------------
     before = counts()
-    fdf = DfTendency(f104.coords, f104.data, f104.shape, device=dev)
-    y = df_from_f64(yb[:32].contiguous())
-    f228 = models[228][1].batched
+    n1 = 600                      # past the streamed kernels' float64 limit
+    i = np.arange(1, n1)
+    coords = np.stack([i, i, np.zeros_like(i)])
+    big = from_numpy(coords, np.full(n1 - 1, -0.01), (n1,) * 3,
+                     torch.float64, dev)
+    big_df = DfTendency(coords, np.full(n1 - 1, -0.01), (n1,) * 3,
+                        device=dev)
+    y600 = torch.zeros((32, n1 - 1), dtype=torch.float64, device=dev)
+    ydf = df_from_f64(yb[:32].contiguous())
+    fdf104 = DfTendency(f104.coords, f104.data, f104.shape, device=dev)
     y228 = torch.zeros((32, 228), dtype=torch.float64, device=dev)
-    for name, call in (("K2 ndim 104", lambda: fused_df_rk4.fused_df_rk4(
-                            fdf, *y, dts_b[:4])),
-                       ("K1 f64 ndim 228", lambda: fused_rk4.fused_rk4(
-                            f228, y228, dts_b[:4]))):
+    for name, call, match in (
+            ("resident K2 ndim 104", lambda: fused_df_rk4._launch(
+                "resident", fdf104, *ydf, dts_b[:4]),
+             "rk4_df_fused launch failed"),
+            ("resident K1 f64 ndim 228", lambda: fused_rk4._launch(
+                "resident", f228, y228, dts_b[:4]),
+             "rk4_fused launch failed"),
+            ("K1 f64 n1 600", lambda: fused_rk4.fused_rk4(
+                big, y600, dts_b[:4]), "neither the resident"),
+            ("K2 n1 600", lambda: fused_df_rk4.fused_df_rk4(
+                big_df, *df_from_f64(y600), dts_b[:4]), "neither the resident"),
+            ("streamed K1 f64 n1 600", lambda: fused_rk4._launch(
+                "streamed", big, y600, dts_b[:4]),
+             "rk4_streamed launch failed")):
         try:
             call()
         except RuntimeError as err:
+            if match not in str(err):
+                fail(f"a direct {name} launch raised {err}")
             print(f"[12] direct {name} raised as it must: {err}", flush=True)
         else:
             fail(f"a direct {name} launch did not raise")
     if counts() != before:
         fail("a refused launch was counted")
+    if fused_route(big, y600, rk4_tableau()):
+        fail("fused_route sends a tensor past both kernels to a kernel")
     out["phase_s"] = time.perf_counter() - start
     out["launches"] = launches
     print(f"[12] large models phase {out['phase_s']:.1f} s; launches "
@@ -2641,6 +2942,35 @@ def main():
                           if k.startswith("df ")},
         "card": card,
     }]
+    for name, sfx, main_shape in (
+            ("rk4_streamed", "", "ndim228_float64_B1024_x200"),
+            ("rk4_df_streamed", "df_", "ndim104_twofloat_B1024_x200")):
+        main_row = large["times"][main_shape]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"qgs_tpu_torch/csrc/{name}.cu",
+            "replaces": "qgs_tpu/ops/pallas_kernels.py:" + (
+                "107" if sfx else "210"),
+            "launches": large_launches[name],
+            "large_models_launches": large_launches[name],
+            "max_abs_err": large["streamed_max_abs_err"][name],
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "share_of_bound": main_row["share_of_bound"],
+            "library_ms": None,
+            "shape": main_shape,
+            "times": {k: v for k, v in large["times"].items()
+                      if v["kernel"] == name},
+            "bit_equal_to_resident": {
+                k: v for k, v in large["streamed_bit_equal_to_resident"].items()
+                if (k.endswith("twofloat") == bool(sfx))},
+            "card": card,
+        })
+    kernels[2]["f32_max_abs_err"] = \
+        large["streamed_max_abs_err"]["rk4_streamed_f32"]
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"diagnostics": diagnostics}), flush=True)
     print(json.dumps({"rank5": rank5}), flush=True)

@@ -16,16 +16,19 @@ batch of states (B, ndim), in the tendency's dtype
   keeps only the recorded states.
 * Routing: classical RK4 of a rank-3
   :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a CUDA state runs the
-  whole loop in the fused kernel
-  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`) when the kernel's layout
-  of the tensor fits one block's shared memory on that card.  Every other
-  case (the CPU, other tableaux, rank-5 tensors, tendency functions that
-  carry no tensor, layouts too large for the card) runs the step loop with
-  plain tensor operations.  Likewise classical RK4 of a rank-3
-  :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA state runs in
-  the fused double-float kernel
-  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`) when its layout
-  fits (:func:`fused_route`).
+  whole loop in one launch of a fused kernel
+  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`): the resident kernel
+  when the tensor's records and the state fit one block's shared memory on
+  that card, else the streamed kernel, which keeps the records in device
+  memory and only the two stage inputs in shared memory (on an H100 up to
+  ndim 421 in float64, 843 in float32).  Likewise classical RK4 of a
+  rank-3 :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA state
+  runs in one of the two fused double-float kernels
+  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`; the streamed one
+  up to ndim 421) (:func:`fused_route`).  Every other case (the CPU, other
+  tableaux, rank-5 tensors, tendency functions that carry no tensor,
+  models past the streamed kernels' limit) runs the step loop with plain
+  tensor operations.
 * The coupled (trajectory, tangent) system: :func:`make_tgls_step` and
   :func:`integrate_runge_kutta_tgls` (the tangent through the materialized
   Jacobian, or a direct contraction), :func:`integrate_runge_kutta_tgls_df`
@@ -247,16 +250,20 @@ def fused_route(f, y, tableau):
     RK4 of a rank-3 :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a
     CUDA state, or of a rank-3
     :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair (the
-    kernels take rank 3 only), whose kernel layout fits one block's
-    shared memory on that card (:func:`~qgs_tpu_torch.ops.fused_rk4.fits`,
-    :func:`~qgs_tpu_torch.ops.fused_df_rk4.df_fits`).  A larger model
-    takes the plain step loop, as the JAX package's integrator takes for
-    every model."""
+    kernels take rank 3 only), that the resident or the streamed kernel
+    can hold on that card
+    (:func:`~qgs_tpu_torch.ops.fused_rk4.choose_kernel`,
+    :func:`~qgs_tpu_torch.ops.fused_df_rk4.df_choose_kernel`).  Rank 5,
+    other tableaux and models past the streamed kernels' limit (on an
+    H100 from ndim 421 in float64 and twofloat, 843 in float32) take the
+    plain step loop, as the JAX package's integrator takes for every
+    model."""
     y0 = y[0] if isinstance(y, tuple) else y
-    kind, fits = ((DfTendency, _fused_df.df_fits) if isinstance(y, tuple)
-                  else (Tendency, _fused.fits))
+    kind, choose = ((DfTendency, _fused_df.df_choose_kernel)
+                    if isinstance(y, tuple)
+                    else (Tendency, _fused.choose_kernel))
     return (_is_rk4(*tableau) and isinstance(f, kind) and len(f.shape) == 3
-            and y0.is_cuda and fits(f, y0.dtype, y0.device))
+            and y0.is_cuda and choose(f, y0.dtype, y0.device) is not None)
 
 
 def _stack(recs):

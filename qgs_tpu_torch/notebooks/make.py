@@ -189,27 +189,32 @@ on the CPU by `tests/test_torch_*.py`.  What differs for a user:
 4. **Which path runs what.** On the card, classical RK4 of a rank-3
    tendency runs the whole integration in one launch of a fused kernel
    (the state stays on chip): K1 (`csrc/rk4_fused.cu`, float64 and
-   float32) or K2 (`csrc/rk4_df_fused.cu`, twofloat).  Every other case
-   runs plain torch ops: the CPU, other tableaux, the rank-5 (dynamic-T,
-   T^4) models, the tangent-linear systems, and models whose kernel
-   layout does not fit one block's shared memory."""
+   float32) or K2 (`csrc/rk4_df_fused.cu`, twofloat), or their streamed
+   counterparts for larger models.  Every other case runs plain torch
+   ops: the CPU, other tableaux, the rank-5 (dynamic-T, T^4) models, the
+   tangent-linear systems, and models past the streamed kernels' limit."""
 
 SMEM_TEXT = """## The shared-memory rule
 
 K1 and K2 hold the tendency tensor's whole layout (its entries in 8 row
 groups, plus the state rows of a block of 32 trajectories) in one block's
-shared memory.  Before any launch the integrator computes that need with
-the launchers' own formula (`fused_rk4.fits`, `fused_df_rk4.df_fits`) and
-compares it with the card's opt-in limit (232,448 bytes a block on an
-H100).  A model that does not fit takes the plain step loop on the same
-card, as the JAX package's integrator does for every model.  For MAOOAM
-at `QgParams`' defaults:
+shared memory.  Their streamed counterparts (`csrc/rk4_streamed.cu`,
+`csrc/rk4_df_streamed.cu`) keep the entries in device memory, streamed
+through a small ring, and only the two RK4 stage inputs in shared memory.
+Before any launch the launcher computes both needs with its own formulas
+and compares them with the card's opt-in limit (232,448 bytes a block on
+an H100): the resident kernel where it fits, else the streamed one
+(`fused_rk4.choose_kernel`, `fused_df_rk4.df_choose_kernel`).  Only a
+model past the streamed kernels' limit (on an H100 from ndim 422 in
+float64 and twofloat, 844 in float32) takes the plain step loop on the
+same card, as the JAX package's integrator does for every model.  For
+MAOOAM at `QgParams`' defaults:
 
-| Configuration | ndim | nnz | layout width | K1 float64 | K2 |
+| Configuration | ndim | nnz | layout width | float64 | twofloat |
 | --- | --- | --- | --- | --- | --- |
-| 2x2/2x4 | 36 | 351 | 50 | 43,776 B: K1 | 56,192 B: K2 |
-| 4x4/4x4 | 104 | 4,935 | 630 | 187,648 B: K1 | 254,592 B: plain loop |
-| 6x6/6x6 | 228 | 27,811 | 3,506 | 682,752 B: plain loop | 965,504 B: plain |
+| 2x2/2x4 | 36 | 351 | 50 | K1 (43,776 B) | K2 (56,192 B) |
+| 4x4/4x4 | 104 | 4,935 | 630 | K1 (187,648 B) | streamed K2 (70,144 B; K2 would need 254,592) |
+| 6x6/6x6 | 228 | 27,811 | 3,506 | streamed K1 (133,632 B; K1 would need 682,752) | streamed K2 (133,632 B) |
 
 The next cell computes the same decisions on the host (the limit passed
 explicitly, so it needs no card)."""
@@ -285,10 +290,14 @@ for atm, ocean in (((2, 2), (2, 4)), ((4, 4), (4, 4)), ((6, 6), (6, 6))):
     width = fused_rk4.row_groups(fb.coords, n1, 8).width
     k1 = fused_rk4.smem_bytes(n1, 8, width, torch.float64)
     k2 = fused_df_rk4.df_smem_bytes(n1, 8, width)
-    fit1 = fused_rk4.fits(fb, torch.float64, "cuda", limit=H100_OPTIN)
-    fit2 = fused_df_rk4.df_fits(fb, torch.float32, "cuda", limit=H100_OPTIN)
+    streamed = fused_rk4.streamed_smem_bytes(n1, 8, torch.float64)
+    pick1 = fused_rk4.choose_kernel(fb, torch.float64, "cuda",
+                                    limit=H100_OPTIN)
+    pick2 = fused_df_rk4.df_choose_kernel(fb, torch.float32, "cuda",
+                                          limit=H100_OPTIN)
     print(f"ndim {n1 - 1:3d}: nnz {len(fb.data):6d}, width {width:5d}, "
-          f"K1 f64 {k1:7d} B fits {fit1}, K2 {k2:7d} B fits {fit2}")"""),
+          f"K1 f64 {k1:7d} B, K2 {k2:7d} B, streamed {streamed:6d} B: "
+          f"float64 {pick1}, twofloat {pick2}")"""),
 ]
 
 

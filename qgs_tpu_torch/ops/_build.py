@@ -6,7 +6,8 @@ The kernels in ``qgs_tpu_torch/csrc/`` have a plain C interface and include
 no PyTorch headers.  At first use each source is compiled with ``nvcc`` for
 Hopper (``sm_90a``), all at once in parallel, and the objects are linked into
 one shared library under ``qgs_tpu_torch/_build/`` (named by a hash of the
-sources, so an edited source is rebuilt), loaded with :mod:`ctypes`.
+sources and the headers they include, so an edited file is rebuilt), loaded
+with :mod:`ctypes`.
 Nothing is built at import time.
 """
 
@@ -22,7 +23,9 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rk4_fused.cu", "rk4_df_fused.cu")
+SOURCES = ("rk4_fused.cu", "rk4_df_fused.cu", "rk4_streamed.cu",
+           "rk4_df_streamed.cu")
+HEADERS = ("stream_ring.cuh", "df_ops.cuh")
 # flags of each source's compile (the link adds -shared)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,12 +57,25 @@ def _declare(lib):
                                      ptr, ptr, i32, ptr, i32, i32, ptr, ptr,
                                      ptr]
     lib.qgs_rk4_df_fused.restype = i32
+    for name in ("qgs_rk4_streamed_f32", "qgs_rk4_streamed_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr,
+                       ptr, ptr]
+        fn.restype = i32
+    lib.qgs_rk4_df_streamed.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr,
+                                        i32, ptr, i32, i32, ptr, ptr, ptr,
+                                        ptr]
+    lib.qgs_rk4_df_streamed.restype = i32
     lib.qgs_cuda_error_string.argtypes = [i32]
     lib.qgs_cuda_error_string.restype = ctypes.c_char_p
     lib.qgs_rk4_fused_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.qgs_rk4_fused_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_rk4_df_fused_smem_bytes.argtypes = [i32, i32, i32]
     lib.qgs_rk4_df_fused_smem_bytes.restype = ctypes.c_longlong
+    lib.qgs_rk4_streamed_smem_bytes.argtypes = [i32, i32, i32]
+    lib.qgs_rk4_streamed_smem_bytes.restype = ctypes.c_longlong
+    lib.qgs_rk4_df_streamed_smem_bytes.argtypes = [i32, i32]
+    lib.qgs_rk4_df_streamed_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_max_smem_optin.argtypes = [i32]
     lib.qgs_max_smem_optin.restype = i32
     return lib
@@ -71,8 +87,9 @@ def load_library():
     if _lib is not None:
         return _lib
     srcs = [CSRC / s for s in SOURCES]
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in srcs + [CSRC / h for h in HEADERS])
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"libqgs_kernels_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)

@@ -23,6 +23,15 @@ of size ``dts[s]``, and records the state every ``write_every`` steps.
 * :func:`df_fits` says, before any launch, whether the kernel's layout of
   a tendency fits one block's opt-in shared memory
   (:func:`df_smem_bytes`, the launcher's own formula).
+* The streamed kernel ``csrc/rk4_df_streamed.cu`` is the same port for
+  tensors whose records do not fit: the records stay in device memory
+  (:func:`df_streamed_records`; :func:`df_streamed_tendency` evaluates
+  them in plain PyTorch) and only the two stage inputs stay in shared
+  memory (:func:`df_streamed_smem_bytes`, :func:`df_streamed_fits`).  Its
+  launches count in :data:`launches_streamed`.  :func:`df_choose_kernel`
+  decides by size which of the two runs a tendency, as
+  :func:`~qgs_tpu_torch.ops.fused_rk4.choose_kernel` does for float64 and
+  float32.
 """
 
 from __future__ import annotations
@@ -31,14 +40,17 @@ import numpy as np
 import torch
 
 from qgs_tpu_torch.ops import _build
-from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, DEFAULT_GROUPS, GROUPS, LANES,
-                                         LAST, check_steps, group_layout,
-                                         raise_on_error, row_groups,
-                                         start_run)
+from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, DEFAULT_GROUPS, GROUPS,
+                                         LANES, LAST, GroupLayout,
+                                         check_steps, group_layout,
+                                         no_kernel_fits, pack_records,
+                                         raise_on_error, ring_bytes,
+                                         row_groups, start_run)
 from qgs_tpu_torch.ops.twofloat import (df_add, df_mul,
                                         make_df_rk4_step_dynamic, split_values)
 
 launches = 0             # kernel launches in this process (plain runs excluded)
+launches_streamed = 0    # the same for the streamed kernel
 
 CHUNK_BYTES = 48         # a chunk of two entries in shared memory (Chunk)
 
@@ -70,6 +82,65 @@ def df_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     return df_smem_bytes(f.shape[0], groups, width) <= limit
 
 
+def df_streamed_smem_bytes(n1, groups):
+    """Shared memory of one block of the streamed kernel over a tensor of
+    first dimension ``n1``: the rings, then the two stage inputs of ``n1``
+    (hi, lo) rows of :data:`~qgs_tpu_torch.ops.fused_rk4.LANES` lanes
+    (``df_streamed_smem_bytes`` of ``csrc/rk4_df_streamed.cu``, which
+    ``chip_smoke.py`` holds this against).  The records stay in device
+    memory."""
+    return ring_bytes(groups) + 8 * 2 * int(n1) * LANES
+
+
+def df_streamed_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+    """Whether the streamed kernel can run the rank-3 tendency ``f`` on
+    ``device`` for state parts of ``dtype`` (float32 only): its
+    :func:`df_streamed_smem_bytes` at most ``limit`` bytes, by default the
+    opt-in shared memory of one block of that card."""
+    if dtype != torch.float32:
+        raise TypeError(f"dtype {dtype}: the kernel takes float32 (hi, lo) "
+                        "pairs")
+    if limit is None:
+        limit = _build.max_smem_optin(device)
+    return df_streamed_smem_bytes(f.shape[0], groups) <= limit
+
+
+def df_choose_kernel(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+    """Which kernel :func:`fused_df_rk4` launches for the rank-3 tendency
+    ``f``: ``"resident"`` when :func:`df_fits`, else ``"streamed"`` when
+    :func:`df_streamed_fits`, else ``None``."""
+    if limit is None:
+        limit = _build.max_smem_optin(device)
+    if df_fits(f, dtype, device, groups, limit):
+        return "resident"
+    if df_streamed_fits(f, dtype, device, groups, limit):
+        return "streamed"
+    return None
+
+
+def df_streamed_records(layout):
+    """The streamed kernel's records of ``layout``
+    (:func:`~qgs_tpu_torch.ops.fused_rk4.pack_records`), each value as its
+    float32 (hi, lo) split, hi in the third word and lo in the fourth."""
+    vhi, vlo = split_values(layout.vals)
+    return pack_records(layout, np.stack([vhi.view("<i4"), vlo.view("<i4")],
+                                         axis=-1))
+
+
+def df_streamed_tendency(recs, lengths, x_hi, x_lo):
+    """The double-float tendency of the (B, n) pair ``(x_hi, x_lo)``
+    through the streamed kernel's records ``recs``
+    (:func:`df_streamed_records`) and the groups' ``lengths``, in plain
+    PyTorch: the (hi, lo) values read from the records' words, the
+    entries summed in the kernel's order (:func:`df_group_tendency`)."""
+    recs = np.ascontiguousarray(recs, np.int32)
+    split = tuple(np.ascontiguousarray(recs[..., w]).view("<f4")
+                  for w in (2, 3))
+    layout = GroupLayout(recs[..., 0], recs[..., 1], None,
+                         np.asarray(lengths), None)
+    return df_group_tendency(layout, x_hi, x_lo, split=split)
+
+
 def fused_df_rk4_reference(f, y_hi, y_lo, dts, write_every=0):
     """Plain PyTorch version of :func:`fused_df_rk4`: ``((y_hi, y_lo),
     (rec_hi, rec_lo))`` with records (len(dts) // write_every, B, n), the
@@ -92,14 +163,18 @@ def _where(mask, a, b):
     return tuple(torch.where(mask, p, q) for p, q in zip(a, b))
 
 
-def df_group_tendency(layout, x_hi, x_lo):
+def df_group_tendency(layout, x_hi, x_lo, split=None):
     """The double-float tendency of the (B, n) pair ``(x_hi, x_lo)``
     through ``layout`` (a :class:`~qgs_tpu_torch.ops.fused_rk4.GroupLayout`),
     in plain PyTorch and in the kernel's order: each entry's term ``(v *
     xx[j]) * xx[k]``, slot ``s`` of each chunk of a row added in order into
     partial sum ``s`` (from (0, 0)), the two partial sums added at the
     row's end.  The products by ``xx[0] = (1, 0)`` are done, as the
-    kernel does them."""
+    kernel does them.  The values are ``split``, a (hi, lo) pair of
+    float32 arrays shaped as the tables, else the split of
+    ``layout.vals``."""
+    if split is None:
+        split = split_values(layout.vals)
     dev = x_hi.device
     one = torch.ones_like(x_hi[:, :1])
     xx = (torch.cat([one, x_hi], dim=1),
@@ -108,8 +183,8 @@ def df_group_tendency(layout, x_hi, x_lo):
     for g, length in enumerate(layout.lengths.tolist()):
         if length == 0:
             continue
-        vhi, vlo = (torch.as_tensor(v, device=dev)
-                    for v in split_values(layout.vals[g, :length]))
+        vhi, vlo = (torch.as_tensor(v[g, :length], device=dev)
+                    for v in split)
         jk = torch.as_tensor(layout.jk[g, :length], device=dev)
         term = (vhi.expand(x_hi.shape[0], -1), vlo.expand(x_hi.shape[0], -1))
         for idx in (jk & 0xffff, jk >> 16):
@@ -159,15 +234,25 @@ def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0, groups=DEFAULT_GROUPS):
     :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`) in one kernel launch;
     ``dts`` (n_steps,) float64 on the state's device.  ``groups`` (one of
     :data:`~qgs_tpu_torch.ops.fused_rk4.GROUPS`) sets the kernel's row
-    groups a block.
+    groups a block.  :func:`df_choose_kernel` decides by size which kernel
+    runs.
 
     Returns ``((y_hi, y_lo), (rec_hi, rec_lo))``, records (n_steps //
     write_every, B, n) holding the state after every ``write_every`` steps.
     The inputs are not modified.  A CPU state runs
-    :func:`fused_df_rk4_reference`; a CUDA state launches the kernel or
-    raises (``RuntimeError`` for a layout that does not :func:`df_fits` the
-    card)."""
-    global launches
+    :func:`fused_df_rk4_reference`; a CUDA state launches a kernel or
+    raises (``RuntimeError`` for a tendency that fits neither kernel)."""
+    return _launch(None, f, y_hi, y_lo, dts, write_every, groups)
+
+
+def _launch(kernel, f, y_hi, y_lo, dts, write_every=0,
+            groups=DEFAULT_GROUPS):
+    """:func:`fused_df_rk4` with ``kernel``, ``"resident"`` or
+    ``"streamed"``, forced (the checks that hold the two kernels bit for
+    bit call this), or chosen by :func:`df_choose_kernel` where it is None.
+    A forced kernel whose layout does not fit raises the launcher's
+    ``RuntimeError``."""
+    global launches, launches_streamed
     if groups not in GROUPS:
         raise ValueError(f"groups = {groups}: the kernel takes one of "
                          f"{GROUPS}")
@@ -183,21 +268,41 @@ def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0, groups=DEFAULT_GROUPS):
     out_lo, rec_lo = start_run(y_lo, n_steps, write_every)
     if B == 0 or n_steps == 0:
         return (out_hi, out_lo), (rec_hi, rec_lo)
-
     dev = y_hi.device
+    n1 = f.shape[0]
+    if kernel is None:
+        kernel = df_choose_kernel(f, torch.float32, dev, groups)
+    if kernel is None:
+        width = row_groups(f.coords, n1, groups).width
+        raise no_kernel_fits("rk4_df_fused", (
+            df_smem_bytes(n1, groups, width),
+            df_streamed_smem_bytes(n1, groups)), n1, dev)
+
     layout = group_layout(f.coords, f.data, f.shape, groups)
-    jk, ctl, lengths = (torch.as_tensor(a, device=dev)
-                        for a in (layout.jk, layout.ctl, layout.lengths))
+    lengths = torch.as_tensor(layout.lengths, device=dev)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "streamed":
+        recs = torch.as_tensor(df_streamed_records(layout), device=dev)
+        scratch = y_hi.new_empty((-(-B // LANES), 3, n1 - 1, LANES, 2))
+        with torch.cuda.device(dev):
+            err = lib.qgs_rk4_df_streamed(
+                recs.data_ptr(), lengths.data_ptr(), recs.shape[0],
+                recs.shape[1], n1, out_hi.data_ptr(), out_lo.data_ptr(), B,
+                dts.data_ptr(), n_steps, write_every, rec_hi.data_ptr(),
+                rec_lo.data_ptr(), scratch.data_ptr(), stream)
+        raise_on_error(err, "rk4_df_streamed")
+        launches_streamed += 1
+        return (out_hi, out_lo), (rec_hi, rec_lo)
+    jk, ctl = (torch.as_tensor(a, device=dev) for a in (layout.jk, layout.ctl))
     vhi, vlo = (torch.as_tensor(v, device=dev)
                 for v in split_values(layout.vals))
-    lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.qgs_rk4_df_fused(
             jk.data_ptr(), ctl.data_ptr(), vhi.data_ptr(), vlo.data_ptr(),
-            lengths.data_ptr(), jk.shape[0], jk.shape[1], f.shape[0],
+            lengths.data_ptr(), jk.shape[0], jk.shape[1], n1,
             out_hi.data_ptr(), out_lo.data_ptr(), B, dts.data_ptr(), n_steps,
-            write_every, rec_hi.data_ptr(), rec_lo.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            write_every, rec_hi.data_ptr(), rec_lo.data_ptr(), stream)
     raise_on_error(err, "rk4_df_fused")
     launches += 1
     return (out_hi, out_lo), (rec_hi, rec_lo)

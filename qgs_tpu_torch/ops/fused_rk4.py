@@ -25,8 +25,18 @@ the state every ``write_every`` steps.
   assignment to groups, from the per-row entry counts alone.
 * :func:`fits` says, before any launch, whether the kernel's layout of a
   tendency fits one block's opt-in shared memory (:func:`smem_bytes`, the
-  launcher's own formula); a layout that does not is refused by the
-  launcher, so the integrators take the plain step loop instead.
+  launcher's own formula).
+* The streamed kernel ``csrc/rk4_streamed.cu`` is the same port for
+  tensors whose records do not fit: the records stay in device memory
+  (:func:`streamed_records`, ``group_layout``'s tables as 16-byte records
+  padded to whole ring tiles; :func:`streamed_tendency` evaluates them in
+  plain PyTorch) and only the two stage inputs stay in shared memory
+  (:func:`streamed_smem_bytes`, :func:`streamed_fits`).  Its launches
+  count in :data:`launches_streamed`.
+* :func:`choose_kernel` decides by size, before any launch, which of the
+  two runs a tendency: the resident one when it fits, else the streamed
+  one when it fits, else neither (the integrators then take the plain
+  step loop, and :func:`fused_rk4` raises).
 """
 
 from __future__ import annotations
@@ -41,8 +51,11 @@ from qgs_tpu_torch.ops import _build
 from qgs_tpu_torch.ops.contraction import _with_dummy
 
 launches = 0             # kernel launches in this process (plain runs excluded)
+launches_streamed = 0    # the same for the streamed kernel
 
 _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
+_STREAMED_FNS = {torch.float32: "qgs_rk4_streamed_f32",
+                 torch.float64: "qgs_rk4_streamed_f64"}
 
 GROUPS = (1, 2, 4, 8)    # the kernel's choices of row groups (warps) a block
 # where the caller sets none, for this kernel and the double-float one: on
@@ -55,6 +68,10 @@ AHEAD = 1                # chunks the kernel reads past a group's end
 LAST = 1 << 16           # ctl flag: the chunk ends its row
 LANES = 32               # trajectories a block, one a lane
 REC_BYTES = 16           # an entry record in shared memory (Rec<T>)
+# the streamed kernels' rings (csrc/stream_ring.cuh): records a slot (a
+# tile), slots a warp
+TILE = 32
+SLOTS = 4
 
 
 class GroupLayout(NamedTuple):
@@ -183,6 +200,95 @@ def fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     return smem_bytes(f.shape[0], groups, width, dtype) <= limit
 
 
+def ring_bytes(groups):
+    """Shared memory of the streamed kernels' rings for ``groups`` warps:
+    :data:`SLOTS` tiles of :data:`TILE` records a warp (``ring_bytes`` of
+    ``csrc/stream_ring.cuh``)."""
+    return groups * SLOTS * TILE * REC_BYTES
+
+
+def streamed_smem_bytes(n1, groups, dtype):
+    """Shared memory of one block of the streamed kernel in ``dtype``
+    (float32 or float64) over a tensor of first dimension ``n1``: the
+    rings, then the two stage inputs of ``n1`` rows of :data:`LANES` lanes
+    (``streamed_smem_bytes`` of ``csrc/rk4_streamed.cu``, which
+    ``chip_smoke.py`` holds this against).  The records do not count: they
+    stay in device memory."""
+    if dtype not in _FNS:
+        raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
+    itemsize = 8 if dtype == torch.float64 else 4
+    return ring_bytes(groups) + itemsize * 2 * int(n1) * LANES
+
+
+def streamed_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+    """Whether the streamed kernel can run the rank-3 tendency ``f`` in
+    ``dtype`` on ``device``: its :func:`streamed_smem_bytes` at most
+    ``limit`` bytes, by default the opt-in shared memory of one block of
+    that card."""
+    if limit is None:
+        limit = _build.max_smem_optin(device)
+    return streamed_smem_bytes(f.shape[0], groups, dtype) <= limit
+
+
+def choose_kernel(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+    """Which kernel :func:`fused_rk4` launches for the rank-3 tendency
+    ``f`` in ``dtype`` on ``device``: ``"resident"`` when its layout
+    :func:`fits`, else ``"streamed"`` when :func:`streamed_fits`, else
+    ``None``.  ``limit`` as for :func:`fits`."""
+    if limit is None:
+        limit = _build.max_smem_optin(device)
+    if fits(f, dtype, device, groups, limit):
+        return "resident"
+    if streamed_fits(f, dtype, device, groups, limit):
+        return "streamed"
+    return None
+
+
+def pack_records(layout, words):
+    """The streamed kernels' records of ``layout`` (a :class:`GroupLayout`
+    of G tables of W records): int32 (G, W', 4), W' the width rounded up
+    to whole :data:`TILE` s, record ``[g, e]`` the 16 bytes ``{jk, ctl,
+    words[g, e, 0], words[g, e, 1]}``, zero past W.  ``words`` (G, W, 2)
+    int32 holds each value's bytes."""
+    G, W = layout.jk.shape
+    out = np.zeros((G, -(-W // TILE) * TILE, 4), np.int32)
+    out[:, :W, 0] = layout.jk
+    out[:, :W, 1] = layout.ctl
+    out[:, :W, 2:] = words
+    return out
+
+
+def streamed_records(layout, dtype):
+    """:func:`pack_records` of ``layout`` with each value in ``dtype``:
+    a float64 value in its two words (little-endian: low word first), a
+    float32 value in the first word and 0 in the second."""
+    vals = np.asarray(layout.vals, "<f8")
+    if dtype == torch.float64:
+        words = vals.view("<i4").reshape(vals.shape + (2,))
+    elif dtype == torch.float32:
+        words = np.stack([vals.astype("<f4").view("<i4"),
+                          np.zeros(vals.shape, np.int32)], axis=-1)
+    else:
+        raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
+    return pack_records(layout, words)
+
+
+def streamed_tendency(recs, lengths, x):
+    """The tendency of the (B, n) state ``x`` through the streamed
+    kernel's records ``recs`` (:func:`streamed_records` in ``x``'s dtype)
+    and the groups' ``lengths``, in plain PyTorch: each value decoded from
+    its words as the kernel decodes it, the entries summed in the kernel's
+    order (:func:`group_tendency`)."""
+    recs = np.ascontiguousarray(recs, np.int32)
+    if x.dtype == torch.float64:
+        vals = np.ascontiguousarray(recs[..., 2:]).view("<f8")[..., 0]
+    else:
+        vals = np.ascontiguousarray(recs[..., 2]).view("<f4")
+    layout = GroupLayout(recs[..., 0], recs[..., 1],
+                         vals.astype(np.float64), np.asarray(lengths), None)
+    return group_tendency(layout, x)
+
+
 def group_tendency(layout, x):
     """The tendency of the (B, n) state ``x`` through ``layout``, in plain
     PyTorch and in the kernel's order: group by group, slot ``s`` of each
@@ -285,18 +391,37 @@ def _check(f, y, dts, write_every):
     check_steps(y, dts, write_every)
 
 
+def no_kernel_fits(name, sizes, n1, device):
+    """The error of a launcher whose tendency fits neither kernel;
+    ``sizes`` the resident and streamed layouts' bytes."""
+    return RuntimeError(
+        f"{name} cannot launch: neither the resident layout ({sizes[0]} B) "
+        f"nor the streamed one ({sizes[1]} B) of a tensor of n1 = {n1} fits "
+        f"the {_build.max_smem_optin(device)} B of shared memory a block on "
+        f"{device}")
+
+
 def fused_rk4(f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
     """Advance the (B, n) state ``y`` by ``len(dts)`` RK4 steps of the
     tendency module ``f`` (a :class:`~qgs_tpu_torch.ops.contraction.Tendency`)
     in one kernel launch; ``dts`` (n_steps,) float64 on ``y``'s device.
     ``groups`` (one of :data:`GROUPS`) sets the kernel's row groups a block.
+    :func:`choose_kernel` decides by size which kernel runs.
 
     Returns ``(y_final, records)``, records (n_steps // write_every, B, n)
     holding the state after every ``write_every`` steps.  ``y`` is not
     modified.  A CPU state runs :func:`fused_rk4_reference`; a CUDA state
-    launches the kernel or raises (``RuntimeError`` for a layout that does
-    not :func:`fits` the card)."""
-    global launches
+    launches a kernel or raises (``RuntimeError`` for a tendency that fits
+    neither kernel)."""
+    return _launch(None, f, y, dts, write_every, groups)
+
+
+def _launch(kernel, f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
+    """:func:`fused_rk4` with ``kernel``, ``"resident"`` or ``"streamed"``,
+    forced (the checks that hold the two kernels bit for bit call this), or
+    chosen by :func:`choose_kernel` where it is None.  A forced kernel whose
+    layout does not fit raises the launcher's ``RuntimeError``."""
+    global launches, launches_streamed
     if groups not in GROUPS:
         raise ValueError(f"groups = {groups}: the kernel takes one of "
                          f"{GROUPS}")
@@ -310,19 +435,41 @@ def fused_rk4(f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
     out, records = start_run(y, n_steps, write_every)
     if B == 0 or n_steps == 0:
         return out, records
+    n1 = f.shape[0]
+    if kernel is None:
+        kernel = choose_kernel(f, y.dtype, y.device, groups)
+    if kernel is None:
+        width = row_groups(f.coords, n1, groups).width
+        raise no_kernel_fits("rk4_fused", (
+            smem_bytes(n1, groups, width, y.dtype),
+            streamed_smem_bytes(n1, groups, y.dtype)), n1, y.device)
 
     layout = group_layout(f.coords, f.data, f.shape, groups)
-    jk, ctl, lengths = (torch.as_tensor(a, device=y.device)
-                        for a in (layout.jk, layout.ctl, layout.lengths))
-    vals = torch.as_tensor(layout.vals, dtype=y.dtype, device=y.device)
+    lengths = torch.as_tensor(layout.lengths, device=y.device)
     lib = _build.load_library()
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    if kernel == "streamed":
+        recs = torch.as_tensor(streamed_records(layout, y.dtype),
+                               device=y.device)
+        scratch = y.new_empty((-(-B // LANES), 2, n1 - 1, LANES))
+        with torch.cuda.device(y.device):
+            err = getattr(lib, _STREAMED_FNS[y.dtype])(
+                recs.data_ptr(), lengths.data_ptr(), recs.shape[0],
+                recs.shape[1], n1, out.data_ptr(), B, dts.data_ptr(),
+                n_steps, write_every, records.data_ptr(), scratch.data_ptr(),
+                stream)
+        raise_on_error(err, "rk4_streamed")
+        launches_streamed += 1
+        return out, records
+    jk, ctl = (torch.as_tensor(a, device=y.device)
+               for a in (layout.jk, layout.ctl))
+    vals = torch.as_tensor(layout.vals, dtype=y.dtype, device=y.device)
     with torch.cuda.device(y.device):
         err = getattr(lib, _FNS[y.dtype])(
             jk.data_ptr(), ctl.data_ptr(), vals.data_ptr(),
-            lengths.data_ptr(), jk.shape[0], jk.shape[1], f.shape[0],
+            lengths.data_ptr(), jk.shape[0], jk.shape[1], n1,
             out.data_ptr(), B, dts.data_ptr(), n_steps, write_every,
-            records.data_ptr(),
-            torch.cuda.current_stream(y.device).cuda_stream)
+            records.data_ptr(), stream)
     raise_on_error(err, "rk4_fused")
     launches += 1
     return out, records

@@ -1,10 +1,13 @@
 """Models whose kernel layout exceeds one block's shared memory.
 
-The fused RK4 kernels (K1 ``csrc/rk4_fused.cu``, K2
+The resident fused RK4 kernels (K1 ``csrc/rk4_fused.cu``, K2
 ``csrc/rk4_df_fused.cu``) hold a tensor's whole layout in one block's
-shared memory.  The integrators decide before any launch whether it fits
+shared memory.  The launchers decide before any launch whether it fits
 (``fits`` / ``df_fits``, twins of the launchers' ``smem_bytes`` /
-``df_smem_bytes``); a model that does not fit takes the plain step loop.
+``df_smem_bytes``); a model that does not fit runs in the streamed
+kernels (``csrc/rk4_streamed.cu``, ``csrc/rk4_df_streamed.cu``, which keep
+the records in device memory; ``tests/test_torch_streamed.py``), and only
+a model past their limit takes the plain step loop.
 
 * The twins' bytes and the fit decisions for MAOOAM at 2x2/2x4 (ndim 36),
   4x4/4x4 (ndim 104) and 6x6/6x6 (ndim 228) against the H100's opt-in
@@ -22,8 +25,10 @@ shared memory.  The integrators decide before any launch whether it fits
   the twofloat tier is held against float64, as in
   ``tests/test_torch_twofloat.py``.
 * On the card (``cuda``-marked, skipped without one): those models
-  integrated on the card against the CPU with K1/K2's launches counted,
-  and the direct kernel calls on layouts that do not fit raising.
+  integrated on the card against the CPU with the four kernels' launches
+  counted, the resident kernels forced on layouts that do not fit
+  raising, and a synthetic tensor past the streamed kernels' float64
+  limit (n1 = 600) raising in float64 and twofloat.
 """
 
 import numpy as np
@@ -40,6 +45,7 @@ from qgs_tpu_torch.integrators.rk import (fused_route, rk2_tableau,
                                           rk4_tableau)
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.ops import _build, fused_df_rk4, fused_rk4
+from qgs_tpu_torch.ops.contraction import Tendency
 from qgs_tpu_torch.ops.twofloat import DfTendency, df_from_f64
 
 from tests.test_torch_host import both_params
@@ -93,6 +99,18 @@ TABLE = {
 FITS = {36: (True, True, True), 104: (True, True, False),
         228: (False, False, False)}
 SETTINGS = {"defaults": defaults, "sweep": sweep}
+
+
+def synthetic(n1, dtype=torch.float64, device="cpu"):
+    """A cheap rank-3 tendency of first dimension ``n1``: every variable
+    damped, and driven by the product of its two neighbours."""
+    i = np.arange(1, n1)
+    j = np.where(i > 1, i - 1, n1 - 1)
+    k = np.where(i < n1 - 1, i + 1, 1)
+    coords = np.concatenate([np.stack([i, i, np.zeros_like(i)]),
+                             np.stack([i, j, k])], axis=1)
+    data = np.concatenate([np.full(n1 - 1, -0.01), np.full(n1 - 1, 0.1)])
+    return Tendency(coords, data, (n1,) * 3, dtype=dtype, device=device)
 
 
 _tendencies = {}
@@ -184,15 +202,20 @@ class _OnCard:
 @pytest.mark.parametrize("ndim", [36, 104, 228])
 def test_route_follows_the_fit(ndim, monkeypatch):
     """``fused_route`` on a card whose opt-in limit is the H100's (a
-    stand-in state and limit: there is no card here): K1 up to ndim 104,
-    K2 at ndim 36 only, and only for classical RK4."""
+    stand-in state and limit: there is no card here): a kernel for float64
+    and twofloat at every width, the resident K1/K2 where their layout
+    fits and the streamed ones past it, and only for classical RK4."""
     monkeypatch.setattr(_build, "max_smem_optin", lambda device: H100_OPTIN)
     f = port_tendency("sweep", ndim)
     fdf = DfTendency(f.coords, f.data, f.shape, device="cpu")
     pair = (_OnCard(torch.float32), _OnCard(torch.float32))
     k1, _, k2 = FITS[ndim]
-    assert fused_route(f, _OnCard(torch.float64), rk4_tableau()) == k1
-    assert fused_route(fdf, pair, rk4_tableau()) == k2
+    assert fused_route(f, _OnCard(torch.float64), rk4_tableau())
+    assert fused_route(fdf, pair, rk4_tableau())
+    assert fused_rk4.choose_kernel(f, torch.float64, "cuda") == (
+        "resident" if k1 else "streamed")
+    assert fused_df_rk4.df_choose_kernel(fdf, torch.float32, "cuda") == (
+        "resident" if k2 else "streamed")
     assert not fused_route(f, _OnCard(torch.float64), rk2_tableau())
 
 
@@ -242,11 +265,17 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def launch_counts():
+    """The launches of K1, K2 and their streamed counterparts so far."""
+    return (fused_rk4.launches, fused_df_rk4.launches,
+            fused_rk4.launches_streamed, fused_df_rk4.launches_streamed)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ndim, precision, k1, k2", [
-    (104, "float64", 1, 0), (104, "float32", 1, 0), (104, "twofloat", 0, 0),
-    (228, "float64", 0, 0)])
-def test_card_against_cpu(cuda_device, ndim, precision, k1, k2):
+@pytest.mark.parametrize("ndim, precision, kernels", [
+    (104, "float64", (1, 0, 0, 0)), (104, "float32", (1, 0, 0, 0)),
+    (104, "twofloat", (0, 0, 0, 1)), (228, "float64", (0, 0, 1, 0))])
+def test_card_against_cpu(cuda_device, ndim, precision, kernels):
     pars = sweep(ndim)(QgParams)
     ic = np.random.default_rng(ndim).random((64, pars.ndim)) * 0.01
     f_cpu, _ = create_tendencies(pars, device="cpu")
@@ -254,21 +283,24 @@ def test_card_against_cpu(cuda_device, ndim, precision, k1, k2):
                         "twofloat" if precision == "twofloat" else "float64")
     dtype = torch.float32 if precision == "float32" else torch.float64
     f_card, _ = create_tendencies(pars, dtype=dtype, device=cuda_device)
-    launches = fused_rk4.launches, fused_df_rk4.launches
+    before = launch_counts()
     integrator = RungeKuttaIntegrator(
         precision="twofloat" if precision == "twofloat" else "float64")
     integrator.set_func(f_card)
     integrator.integrate(0., 2., 0.1, ic=ic, write_steps=5)
     _, traj = integrator.get_trajectories()
     torch.cuda.synchronize()
-    assert (fused_rk4.launches - launches[0],
-            fused_df_rk4.launches - launches[1]) == (k1, k2)
+    assert tuple(a - b for a, b in zip(launch_counts(), before)) == kernels
     np.testing.assert_allclose(traj.double().cpu().numpy(), ref,
                                **(TOL32 if precision == "float32" else TOL64))
 
 
 @pytest.mark.cuda
 def test_direct_launches_that_do_not_fit_raise(cuda_device):
+    """The resident kernels forced on layouts that do not fit raise, and a
+    tensor past the streamed kernels' float64 limit (n1 = 600) raises in
+    float64 and twofloat; no refused launch is counted."""
+    before = launch_counts()
     f104 = port_tendency("sweep", 104)
     fdf = DfTendency(f104.coords, f104.data, f104.shape, device=cuda_device)
     y = df_from_f64(torch.zeros((32, 104), dtype=torch.float64,
@@ -276,9 +308,19 @@ def test_direct_launches_that_do_not_fit_raise(cuda_device):
     dts = torch.full((4,), 0.1, dtype=torch.float64, device=cuda_device)
     assert not fused_df_rk4.df_fits(fdf, torch.float32, cuda_device)
     with pytest.raises(RuntimeError, match="rk4_df_fused launch failed"):
-        fused_df_rk4.fused_df_rk4(fdf, *y, dts)
+        fused_df_rk4._launch("resident", fdf, *y, dts)
     f228, _ = create_tendencies(sweep(228)(QgParams), device=cuda_device)
     y = torch.zeros((32, 228), dtype=torch.float64, device=cuda_device)
     assert not fused_rk4.fits(f228.batched, torch.float64, cuda_device)
     with pytest.raises(RuntimeError, match="rk4_fused launch failed"):
-        fused_rk4.fused_rk4(f228.batched, y, dts)
+        fused_rk4._launch("resident", f228.batched, y, dts)
+    big = synthetic(600, device=cuda_device)
+    big_df = DfTendency(big.coords, big.data, big.shape, device=cuda_device)
+    y = torch.zeros((32, 599), dtype=torch.float64, device=cuda_device)
+    assert not fused_rk4.streamed_fits(big, torch.float64, cuda_device)
+    assert not fused_route(big, y, rk4_tableau())
+    with pytest.raises(RuntimeError, match="neither the resident"):
+        fused_rk4.fused_rk4(big, y, dts)
+    with pytest.raises(RuntimeError, match="neither the resident"):
+        fused_df_rk4.fused_df_rk4(big_df, *df_from_f64(y), dts)
+    assert launch_counts() == before
