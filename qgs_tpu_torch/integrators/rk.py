@@ -28,7 +28,10 @@ batch of states (B, ndim), in the tendency's dtype
   up to ndim 421) (:func:`fused_route`).  Every other case (the CPU, other
   tableaux, rank-5 tensors, tendency functions that carry no tensor,
   models past the streamed kernels' limit) runs the step loop with plain
-  tensor operations.
+  tensor operations.  Under a profiler, :func:`integrate_runge_kutta`
+  marks the state's and the time grid's uploads with the span
+  ``qgs.state_in`` and the kernel's choice with ``qgs.route``
+  (:func:`~qgs_tpu_torch.utils.profiling.span`).
 * The coupled (trajectory, tangent) system: :func:`make_tgls_step` and
   :func:`integrate_runge_kutta_tgls` (the tangent through the materialized
   Jacobian, or a direct contraction), :func:`integrate_runge_kutta_tgls_df`
@@ -60,6 +63,7 @@ from qgs_tpu_torch.ops.twofloat import (
     make_df_tgls_rk_step_dynamic,
 )
 from qgs_tpu_torch.parallel.mesh import map_shards
+from qgs_tpu_torch.utils.profiling import span
 
 
 def rk4_tableau(dtype=torch.float64):
@@ -262,8 +266,11 @@ def fused_route(f, y, tableau):
     kind, choose = ((DfTendency, _fused_df.df_choose_kernel)
                     if isinstance(y, tuple)
                     else (Tendency, _fused.choose_kernel))
-    return (_is_rk4(*tableau) and isinstance(f, kind) and len(f.shape) == 3
-            and y0.is_cuda and choose(f, y0.dtype, y0.device) is not None)
+    if not (_is_rk4(*tableau) and isinstance(f, kind) and len(f.shape) == 3
+            and y0.is_cuda):
+        return False
+    with span("qgs.route"):
+        return choose(f, y0.dtype, y0.device) is not None
 
 
 def _stack(recs):
@@ -312,7 +319,8 @@ def _step_loops(steps, ys, tts, dts, write_steps, record=lambda y: y):
 
 def _fused_loop(f, y, dts, write_steps):
     """The same records from one launch of the fused RK4 kernel."""
-    dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y.device)
+    with span("qgs.state_in"):
+        dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y.device)
     final, recs = _fused.fused_rk4(f, y, dts_dev, write_steps)
     return _assemble(y, recs, final, len(dts), write_steps)
 
@@ -397,7 +405,8 @@ def integrate_runge_kutta(f, t0, t, dt, ic=None, forward=True, write_steps=1,
     """
     if ic is None:
         ic = np.zeros((1, infer_ndim(f, device)))
-    y = as_state(f, ic, device)
+    with span("qgs.state_in"):
+        y = as_state(f, ic, device)
     if a is None and b is None and c is None:
         a, b, c = rk4_tableau()
     time, tts, dts = _directed_grid(t0, t, dt, forward)

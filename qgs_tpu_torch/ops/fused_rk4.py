@@ -37,6 +37,10 @@ the state every ``write_every`` steps.
   two runs a tendency: the resident one when it fits, else the streamed
   one when it fits, else neither (the integrators then take the plain
   step loop, and :func:`fused_rk4` raises).
+* A launch builds its layout on the host under the span ``qgs.layout``
+  and uploads it under ``qgs.layout_in``
+  (:func:`~qgs_tpu_torch.utils.profiling.span`, recorded only under a
+  profiler); :data:`layout_builds` counts the :func:`group_layout` calls.
 """
 
 from __future__ import annotations
@@ -49,9 +53,11 @@ import torch
 
 from qgs_tpu_torch.ops import _build
 from qgs_tpu_torch.ops.contraction import _with_dummy
+from qgs_tpu_torch.utils.profiling import span
 
 launches = 0             # kernel launches in this process (plain runs excluded)
 launches_streamed = 0    # the same for the streamed kernel
+layout_builds = 0        # group_layout calls in this process (both kernels')
 
 _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
 _STREAMED_FNS = {torch.float32: "qgs_rk4_streamed_f32",
@@ -154,7 +160,10 @@ def group_layout(coords, data, shape, groups):
     for the kernel (a :class:`GroupLayout`), as :func:`row_groups` assigns
     them; a group lists its rows in increasing order, each row's entries in
     COO order, padded with zero entries to its chunks (so that the kernel
-    still writes a row without entries)."""
+    still writes a row without entries).  Counts the call in
+    :data:`layout_builds`."""
+    global layout_builds
+    layout_builds += 1
     row_ptr, jk, vals = csr_layout(coords, data, shape)
     rg = row_groups(coords, shape[0], groups)
     counts, padded = rg.counts, rg.padded
@@ -436,22 +445,30 @@ def _launch(kernel, f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
     if B == 0 or n_steps == 0:
         return out, records
     n1 = f.shape[0]
-    if kernel is None:
-        kernel = choose_kernel(f, y.dtype, y.device, groups)
-    if kernel is None:
-        width = row_groups(f.coords, n1, groups).width
-        raise no_kernel_fits("rk4_fused", (
-            smem_bytes(n1, groups, width, y.dtype),
-            streamed_smem_bytes(n1, groups, y.dtype)), n1, y.device)
-
-    layout = group_layout(f.coords, f.data, f.shape, groups)
-    lengths = torch.as_tensor(layout.lengths, device=y.device)
+    with span("qgs.layout"):                # the host's tables
+        if kernel is None:
+            kernel = choose_kernel(f, y.dtype, y.device, groups)
+        if kernel is None:
+            width = row_groups(f.coords, n1, groups).width
+            raise no_kernel_fits("rk4_fused", (
+                smem_bytes(n1, groups, width, y.dtype),
+                streamed_smem_bytes(n1, groups, y.dtype)), n1, y.device)
+        layout = group_layout(f.coords, f.data, f.shape, groups)
+        if kernel == "streamed":
+            packed = streamed_records(layout, y.dtype)
+    with span("qgs.layout_in"):             # their uploads
+        lengths = torch.as_tensor(layout.lengths, device=y.device)
+        if kernel == "streamed":
+            recs = torch.as_tensor(packed, device=y.device)
+            scratch = y.new_empty((-(-B // LANES), 2, n1 - 1, LANES))
+        else:
+            jk, ctl = (torch.as_tensor(a, device=y.device)
+                       for a in (layout.jk, layout.ctl))
+            vals = torch.as_tensor(layout.vals, dtype=y.dtype,
+                                   device=y.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(y.device).cuda_stream
     if kernel == "streamed":
-        recs = torch.as_tensor(streamed_records(layout, y.dtype),
-                               device=y.device)
-        scratch = y.new_empty((-(-B // LANES), 2, n1 - 1, LANES))
         with torch.cuda.device(y.device):
             err = getattr(lib, _STREAMED_FNS[y.dtype])(
                 recs.data_ptr(), lengths.data_ptr(), recs.shape[0],
@@ -461,9 +478,6 @@ def _launch(kernel, f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
         raise_on_error(err, "rk4_streamed")
         launches_streamed += 1
         return out, records
-    jk, ctl = (torch.as_tensor(a, device=y.device)
-               for a in (layout.jk, layout.ctl))
-    vals = torch.as_tensor(layout.vals, dtype=y.dtype, device=y.device)
     with torch.cuda.device(y.device):
         err = getattr(lib, _FNS[y.dtype])(
             jk.data_ptr(), ctl.data_ptr(), vals.data_ptr(),

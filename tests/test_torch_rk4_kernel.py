@@ -5,7 +5,10 @@ padding and the balance, and the tendency evaluated through it against
 the TPU kernel it replaces (``make_pallas_rk4_f32``, run in interpret
 mode), and in float64 against ``make_rk_step``.  On the CPU the wrapper
 runs the plain version and launches nothing; the kernel itself is compared
-with its plain version only on a CUDA card (marked ``cuda``)."""
+with its plain version only on a CUDA card (marked ``cuda``), where a
+traced ``integrate`` also records its launch's spans."""
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +18,11 @@ import torch
 from qgs_tpu.integrators.rk import make_rk_step, rk4_tableau, time_grid
 from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
 from qgs_tpu.ops.pallas_kernels import make_pallas_rk4_f32
-from qgs_tpu_torch.ops import fused_rk4
+from qgs_tpu_torch.integrators.rk import integrate_runge_kutta
+from qgs_tpu_torch.ops import _build, fused_rk4
 from qgs_tpu_torch.ops.contraction import from_numpy
+from qgs_tpu_torch.utils import profiling
+from qgs_tpu_torch.utils.profiling import trace
 
 from tests.test_trajectory import _maooam_params, _rp_params
 
@@ -217,3 +223,45 @@ def test_kernel_matches_plain_version_on_card(maooam, cuda_device, dtype, tol,
                                y_ref.cpu().numpy(), **tol)
     np.testing.assert_allclose(rec.double().cpu().numpy(),
                                rec_ref.cpu().numpy(), **tol)
+
+
+LAUNCH_SPANS = ("qgs.route", "qgs.layout", "qgs.layout_in")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["resident", "streamed"])
+def test_traced_integrate_records_the_launch_spans(maooam, cuda_device,
+                                                   kernel, tmp_path,
+                                                   monkeypatch):
+    """Under ``trace``, each float64 ``integrate`` on the card records
+    ``qgs.route``, ``qgs.layout`` and ``qgs.layout_in`` once a launch, and
+    ``qgs.state_in`` twice (the state, the time grid), on the resident
+    kernel and on the streamed one (chosen by a shared-memory limit that
+    only its layout fits); each builds its layout once, and the spans are
+    host operations of the trace, none on the device's timeline."""
+    pars, _, tensor = maooam
+    f = _port(tensor, torch.float64, cuda_device)
+    if kernel == "streamed":
+        limit = fused_rk4.streamed_smem_bytes(
+            f.shape[0], fused_rk4.DEFAULT_GROUPS, torch.float64)
+        monkeypatch.setattr(_build, "max_smem_optin", lambda device: limit)
+    assert fused_rk4.choose_kernel(f, torch.float64, cuda_device) == kernel
+    counter = "launches" if kernel == "resident" else "launches_streamed"
+    ic = np.random.default_rng(3).random((64, pars.ndim)) * 0.01
+    profiling.reset_spans()
+    before, builds = getattr(fused_rk4, counter), fused_rk4.layout_builds
+    with trace(str(tmp_path)):
+        for _ in range(2):
+            integrate_runge_kutta(f, 0., 1., 0.1, ic=ic, write_steps=5)
+        torch.cuda.synchronize()
+    totals = profiling.span_totals()
+    profiling.reset_spans()
+    assert getattr(fused_rk4, counter) - before == 2
+    assert fused_rk4.layout_builds - builds == 2
+    assert {name: totals[name][0] for name in LAUNCH_SPANS} == dict.fromkeys(
+        LAUNCH_SPANS, 2)
+    assert totals["qgs.state_in"][0] == 4
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    cats = {e["cat"] for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("name", "").startswith("qgs.")}
+    assert cats == {"cpu_op"}
