@@ -255,22 +255,22 @@ def fused_route(f, y, tableau):
     CUDA state, or of a rank-3
     :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair (the
     kernels take rank 3 only), that the resident or the streamed kernel
-    can hold on that card
-    (:func:`~qgs_tpu_torch.ops.fused_rk4.choose_kernel`,
-    :func:`~qgs_tpu_torch.ops.fused_df_rk4.df_choose_kernel`).  Rank 5,
-    other tableaux and models past the streamed kernels' limit (on an
-    H100 from ndim 421 in float64 and twofloat, 843 in float32) take the
+    can hold on that card: the choice of the tendency's launch plan
+    (:func:`~qgs_tpu_torch.ops.fused_rk4.launch_plan`, built at the first
+    call and kept on ``f``, so that the launch reads the same choice).
+    Rank 5, other tableaux and models past the streamed kernels' limit (on
+    an H100 from ndim 421 in float64 and twofloat, 843 in float32) take the
     plain step loop, as the JAX package's integrator takes for every
     model."""
     y0 = y[0] if isinstance(y, tuple) else y
-    kind, choose = ((DfTendency, _fused_df.df_choose_kernel)
-                    if isinstance(y, tuple)
-                    else (Tendency, _fused.choose_kernel))
+    kind, family = ((DfTendency, _fused_df.DF) if isinstance(y, tuple)
+                    else (Tendency, _fused.K1))
     if not (_is_rk4(*tableau) and isinstance(f, kind) and len(f.shape) == 3
             and y0.is_cuda):
         return False
     with span("qgs.route"):
-        return choose(f, y0.dtype, y0.device) is not None
+        plan = _fused.launch_plan(f, family, y0.dtype, y0.device)
+        return plan.kernel is not None
 
 
 def _stack(recs):

@@ -32,6 +32,9 @@ of size ``dts[s]``, and records the state every ``write_every`` steps.
   decides by size which of the two runs a tendency, as
   :func:`~qgs_tpu_torch.ops.fused_rk4.choose_kernel` does for float64 and
   float32.
+* A launch takes its kernel and tables from the tendency's launch plan of
+  the family :data:`DF`, as K1's launch does from its own
+  (:func:`~qgs_tpu_torch.ops.fused_rk4.plan_tables`).
 """
 
 from __future__ import annotations
@@ -42,10 +45,10 @@ import torch
 from qgs_tpu_torch.ops import _build
 from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, DEFAULT_GROUPS, GROUPS,
                                          LANES, LAST, GroupLayout,
-                                         check_steps, group_layout,
-                                         no_kernel_fits, pack_records,
-                                         raise_on_error, ring_bytes,
-                                         row_groups, start_run)
+                                         KernelFamily, check_steps,
+                                         pack_records, pick_kernel,
+                                         plan_tables, raise_on_error,
+                                         ring_bytes, row_groups, start_run)
 from qgs_tpu_torch.ops.twofloat import (df_add, df_mul,
                                         make_df_rk4_step_dynamic, split_values)
 
@@ -111,11 +114,8 @@ def df_choose_kernel(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     :func:`df_streamed_fits`, else ``None``."""
     if limit is None:
         limit = _build.max_smem_optin(device)
-    if df_fits(f, dtype, device, groups, limit):
-        return "resident"
-    if df_streamed_fits(f, dtype, device, groups, limit):
-        return "streamed"
-    return None
+    width = row_groups(f.coords, f.shape[0], groups).width
+    return pick_kernel(DF.sizes(f.shape[0], groups, width, dtype), limit)
 
 
 def df_streamed_records(layout):
@@ -125,6 +125,25 @@ def df_streamed_records(layout):
     vhi, vlo = split_values(layout.vals)
     return pack_records(layout, np.stack([vhi.view("<i4"), vlo.view("<i4")],
                                          axis=-1))
+
+
+def _df_sizes(n1, groups, width, dtype):
+    if dtype != torch.float32:
+        raise TypeError(f"dtype {dtype}: the kernel takes float32 (hi, lo) "
+                        "pairs")
+    return df_smem_bytes(n1, groups, width), df_streamed_smem_bytes(n1, groups)
+
+
+def _df_tables(layout, kernel, dtype):
+    if kernel == "streamed":
+        return (layout.lengths, None), (df_streamed_records(layout), None)
+    vhi, vlo = split_values(layout.vals)
+    return ((layout.lengths, None), (layout.jk, None), (layout.ctl, None),
+            (vhi, None), (vlo, None))
+
+
+# K2's launch plans (:func:`~qgs_tpu_torch.ops.fused_rk4.launch_plan`)
+DF = KernelFamily("rk4_df_fused", _df_sizes, _df_tables)
 
 
 def df_streamed_tendency(recs, lengths, x_hi, x_lo):
@@ -249,9 +268,9 @@ def _launch(kernel, f, y_hi, y_lo, dts, write_every=0,
             groups=DEFAULT_GROUPS):
     """:func:`fused_df_rk4` with ``kernel``, ``"resident"`` or
     ``"streamed"``, forced (the checks that hold the two kernels bit for
-    bit call this), or chosen by :func:`df_choose_kernel` where it is None.
-    A forced kernel whose layout does not fit raises the launcher's
-    ``RuntimeError``."""
+    bit call this), or the launch plan's choice where it is None
+    (:func:`~qgs_tpu_torch.ops.fused_rk4.plan_tables`).  A forced kernel
+    whose layout does not fit raises the launcher's ``RuntimeError``."""
     global launches, launches_streamed
     if groups not in GROUPS:
         raise ValueError(f"groups = {groups}: the kernel takes one of "
@@ -270,20 +289,11 @@ def _launch(kernel, f, y_hi, y_lo, dts, write_every=0,
         return (out_hi, out_lo), (rec_hi, rec_lo)
     dev = y_hi.device
     n1 = f.shape[0]
-    if kernel is None:
-        kernel = df_choose_kernel(f, torch.float32, dev, groups)
-    if kernel is None:
-        width = row_groups(f.coords, n1, groups).width
-        raise no_kernel_fits("rk4_df_fused", (
-            df_smem_bytes(n1, groups, width),
-            df_streamed_smem_bytes(n1, groups)), n1, dev)
-
-    layout = group_layout(f.coords, f.data, f.shape, groups)
-    lengths = torch.as_tensor(layout.lengths, device=dev)
+    kernel, tables = plan_tables(f, DF, kernel, torch.float32, dev, groups)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if kernel == "streamed":
-        recs = torch.as_tensor(df_streamed_records(layout), device=dev)
+        lengths, recs = tables
         scratch = y_hi.new_empty((-(-B // LANES), 3, n1 - 1, LANES, 2))
         with torch.cuda.device(dev):
             err = lib.qgs_rk4_df_streamed(
@@ -294,9 +304,7 @@ def _launch(kernel, f, y_hi, y_lo, dts, write_every=0,
         raise_on_error(err, "rk4_df_streamed")
         launches_streamed += 1
         return (out_hi, out_lo), (rec_hi, rec_lo)
-    jk, ctl = (torch.as_tensor(a, device=dev) for a in (layout.jk, layout.ctl))
-    vhi, vlo = (torch.as_tensor(v, device=dev)
-                for v in split_values(layout.vals))
+    lengths, jk, ctl, vhi, vlo = tables
     with torch.cuda.device(dev):
         err = lib.qgs_rk4_df_fused(
             jk.data_ptr(), ctl.data_ptr(), vhi.data_ptr(), vlo.data_ptr(),

@@ -37,16 +37,21 @@ the state every ``write_every`` steps.
   two runs a tendency: the resident one when it fits, else the streamed
   one when it fits, else neither (the integrators then take the plain
   step loop, and :func:`fused_rk4` raises).
-* A launch builds its layout on the host under the span ``qgs.layout``
-  and uploads it under ``qgs.layout_in``
+* :func:`launch_plan` is a tendency's launch plan, kept on its module and
+  built once a key: the kernel the route takes and, from the plan's first
+  launch of a kernel on, its :func:`group_layout` and that kernel's device
+  tables (:func:`plan_tables`, which both launchers call).  A launch looks
+  its plan up under the span ``qgs.layout`` and, where the plan is new,
+  uploads its tables under ``qgs.layout_in``
   (:func:`~qgs_tpu_torch.utils.profiling.span`, recorded only under a
-  profiler); :data:`layout_builds` counts the :func:`group_layout` calls.
+  profiler); :data:`layout_builds` counts the :func:`group_layout` calls,
+  :data:`plan_hits` the launches served by a stored plan.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -58,6 +63,7 @@ from qgs_tpu_torch.utils.profiling import span
 launches = 0             # kernel launches in this process (plain runs excluded)
 launches_streamed = 0    # the same for the streamed kernel
 layout_builds = 0        # group_layout calls in this process (both kernels')
+plan_hits = 0            # launches whose tables a stored plan held (both's)
 
 _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
 _STREAMED_FNS = {torch.float32: "qgs_rk4_streamed_f32",
@@ -155,17 +161,17 @@ def row_groups(coords, n1, groups):
                      int(load.max(initial=0)) + AHEAD * CHUNK)
 
 
-def group_layout(coords, data, shape, groups):
+def group_layout(coords, data, shape, groups, rows=None):
     """Split the output rows of a rank-3 COO tensor into ``groups`` groups
     for the kernel (a :class:`GroupLayout`), as :func:`row_groups` assigns
-    them; a group lists its rows in increasing order, each row's entries in
-    COO order, padded with zero entries to its chunks (so that the kernel
-    still writes a row without entries).  Counts the call in
-    :data:`layout_builds`."""
+    them (``rows``, that assignment where the caller has it); a group lists
+    its rows in increasing order, each row's entries in COO order, padded
+    with zero entries to its chunks (so that the kernel still writes a row
+    without entries).  Counts the call in :data:`layout_builds`."""
     global layout_builds
     layout_builds += 1
     row_ptr, jk, vals = csr_layout(coords, data, shape)
-    rg = row_groups(coords, shape[0], groups)
+    rg = rows if rows is not None else row_groups(coords, shape[0], groups)
     counts, padded = rg.counts, rg.padded
     out = GroupLayout(np.zeros((groups, rg.width), np.int32),
                       np.zeros((groups, rg.width), np.int32),
@@ -239,6 +245,18 @@ def streamed_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     return streamed_smem_bytes(f.shape[0], groups, dtype) <= limit
 
 
+def pick_kernel(sizes, limit):
+    """The kernel of both launchers' choice, from the shared memory of the
+    resident and the streamed layouts, ``sizes``: ``"resident"`` when the
+    first is at most ``limit`` bytes, else ``"streamed"`` when the second
+    is, else ``None``."""
+    if sizes[0] <= limit:
+        return "resident"
+    if sizes[1] <= limit:
+        return "streamed"
+    return None
+
+
 def choose_kernel(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     """Which kernel :func:`fused_rk4` launches for the rank-3 tendency
     ``f`` in ``dtype`` on ``device``: ``"resident"`` when its layout
@@ -246,11 +264,8 @@ def choose_kernel(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     ``None``.  ``limit`` as for :func:`fits`."""
     if limit is None:
         limit = _build.max_smem_optin(device)
-    if fits(f, dtype, device, groups, limit):
-        return "resident"
-    if streamed_fits(f, dtype, device, groups, limit):
-        return "streamed"
-    return None
+    width = row_groups(f.coords, f.shape[0], groups).width
+    return pick_kernel(K1.sizes(f.shape[0], groups, width, dtype), limit)
 
 
 def pack_records(layout, words):
@@ -400,14 +415,136 @@ def _check(f, y, dts, write_every):
     check_steps(y, dts, write_every)
 
 
-def no_kernel_fits(name, sizes, n1, device):
+def no_kernel_fits(name, sizes, n1, limit, device):
     """The error of a launcher whose tendency fits neither kernel;
-    ``sizes`` the resident and streamed layouts' bytes."""
+    ``sizes`` the resident and streamed layouts' bytes, ``limit`` the
+    shared memory a block on ``device``."""
     return RuntimeError(
         f"{name} cannot launch: neither the resident layout ({sizes[0]} B) "
         f"nor the streamed one ({sizes[1]} B) of a tensor of n1 = {n1} fits "
-        f"the {_build.max_smem_optin(device)} B of shared memory a block on "
-        f"{device}")
+        f"the {limit} B of shared memory a block on {device}")
+
+
+class KernelFamily(NamedTuple):
+    """What a launch plan needs of a family of fused kernels (the resident
+    and the streamed one of K1, or of the double-float K2): its ``name``
+    (the resident launcher's, a part of the plan's key), ``sizes(n1,
+    groups, width, dtype)`` the resident and the streamed layouts' shared
+    memory, and ``tables(layout, kernel, dtype)`` a kernel's tables of a
+    :class:`GroupLayout`, ``(array, dtype)`` pairs in the launcher's order
+    (dtype None uploads the array in its own)."""
+    name: str
+    sizes: Callable
+    tables: Callable
+
+
+def _k1_sizes(n1, groups, width, dtype):
+    return (smem_bytes(n1, groups, width, dtype),
+            streamed_smem_bytes(n1, groups, dtype))
+
+
+def _k1_tables(layout, kernel, dtype):
+    if kernel == "streamed":
+        return (layout.lengths, None), (streamed_records(layout, dtype), None)
+    return ((layout.lengths, None), (layout.jk, None), (layout.ctl, None),
+            (layout.vals, dtype))
+
+
+K1 = KernelFamily("rk4_fused", _k1_sizes, _k1_tables)
+
+
+class _Plans(dict):
+    """A module's launch plans by key, all built from its arrays ``coords``
+    and ``data``.  A copy of the module (a mesh's replica on another card)
+    starts with none: its plans are its own."""
+
+    def __init__(self, coords=None, data=None):
+        super().__init__()
+        self.coords, self.data = coords, data
+
+    def __reduce__(self):
+        return _Plans, ()
+
+
+class LaunchPlan:
+    """A tendency's launch plan for one kernel family, dtype, device,
+    ``groups`` and shared-memory ``limit`` (:func:`launch_plan`): the
+    arrays it was built from (``coords``, ``data``, ``shape``), its rows'
+    :class:`RowGroups` (``rows``), the resident and the streamed layouts'
+    bytes (``sizes``) and the kernel the route takes (``kernel``:
+    ``"resident"``, ``"streamed"`` or ``None``, :func:`pick_kernel`);
+    from the first launch of a kernel on (:func:`plan_tables`), the
+    :func:`group_layout` (``layout``) and that kernel's device tables
+    (``tables``, kernel -> tuple of tensors in the launcher's order)."""
+
+    def __init__(self, f, family, dtype, device, groups, limit):
+        self.coords, self.data, self.shape = f.coords, f.data, f.shape
+        self.device, self.limit = device, limit
+        self.rows = row_groups(f.coords, f.shape[0], groups)
+        self.sizes = family.sizes(f.shape[0], groups, self.rows.width, dtype)
+        self.kernel = pick_kernel(self.sizes, limit)
+        self.layout = None
+        self.tables = {}
+
+
+def launch_plan(f, family, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+    """The launch plan (a :class:`LaunchPlan`) of the rank-3 tendency ``f``
+    for the kernel ``family`` (:data:`K1`, or
+    :data:`~qgs_tpu_torch.ops.fused_df_rk4.DF`) in ``dtype`` on
+    ``device``, with ``groups`` row groups and ``limit`` bytes of shared
+    memory a block (by default the card's,
+    :func:`~qgs_tpu_torch.ops._build.max_smem_optin`).
+
+    The plan is kept on ``f`` (``f.launch_plans``) under ``(family name,
+    dtype, device, groups, limit)``, so that a smaller limit (a test's)
+    gets a plan of its own, and built anew, with the module's other plans
+    dropped, once ``f.coords`` or ``f.data`` is no longer the array it was
+    built from.  A change made inside those arrays in place is not seen, as
+    the plain contraction's layout, built when the module is, does not see
+    it either."""
+    device = torch.device(device)
+    if limit is None:
+        limit = _build.max_smem_optin(device)
+    plans = getattr(f, "launch_plans", None)
+    if (plans is None or plans.coords is not f.coords
+            or plans.data is not f.data):
+        plans = f.launch_plans = _Plans(f.coords, f.data)
+    key = (family.name, dtype, device, groups, limit)
+    plan = plans.get(key)
+    if plan is None:
+        plan = plans[key] = LaunchPlan(f, family, dtype, device, groups,
+                                       limit)
+    return plan
+
+
+def plan_tables(f, family, kernel, dtype, device, groups=DEFAULT_GROUPS,
+                limit=None):
+    """``(kernel, tables)`` of a launch of the tendency ``f`` (both
+    launchers' one path to their tables): ``kernel`` where it is forced,
+    else its plan's choice (:func:`launch_plan`, looked up under the span
+    ``qgs.layout``), and that kernel's device tables.  The plan's first
+    launch of a kernel builds them (its :func:`group_layout` once a plan,
+    under ``qgs.layout``) and uploads them (under ``qgs.layout_in``); every
+    later one takes the stored tables and counts in :data:`plan_hits`.
+    Raises where the plan's choice is no kernel."""
+    global plan_hits
+    with span("qgs.layout"):
+        plan = launch_plan(f, family, dtype, device, groups, limit)
+        kernel = kernel or plan.kernel
+        if kernel is None:
+            raise no_kernel_fits(family.name, plan.sizes, plan.shape[0],
+                                 plan.limit, plan.device)
+        if kernel in plan.tables:
+            plan_hits += 1
+            return kernel, plan.tables[kernel]
+        if plan.layout is None:
+            plan.layout = group_layout(plan.coords, plan.data, plan.shape,
+                                       groups, plan.rows)
+        host = family.tables(plan.layout, kernel, dtype)
+    with span("qgs.layout_in"):
+        tables = plan.tables[kernel] = tuple(
+            torch.as_tensor(a, dtype=t, device=plan.device) for a, t in host)
+    return kernel, tables
 
 
 def fused_rk4(f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
@@ -428,8 +565,9 @@ def fused_rk4(f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
 def _launch(kernel, f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
     """:func:`fused_rk4` with ``kernel``, ``"resident"`` or ``"streamed"``,
     forced (the checks that hold the two kernels bit for bit call this), or
-    chosen by :func:`choose_kernel` where it is None.  A forced kernel whose
-    layout does not fit raises the launcher's ``RuntimeError``."""
+    the launch plan's choice where it is None (:func:`plan_tables`).  A
+    forced kernel whose layout does not fit raises the launcher's
+    ``RuntimeError``."""
     global launches, launches_streamed
     if groups not in GROUPS:
         raise ValueError(f"groups = {groups}: the kernel takes one of "
@@ -445,30 +583,12 @@ def _launch(kernel, f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
     if B == 0 or n_steps == 0:
         return out, records
     n1 = f.shape[0]
-    with span("qgs.layout"):                # the host's tables
-        if kernel is None:
-            kernel = choose_kernel(f, y.dtype, y.device, groups)
-        if kernel is None:
-            width = row_groups(f.coords, n1, groups).width
-            raise no_kernel_fits("rk4_fused", (
-                smem_bytes(n1, groups, width, y.dtype),
-                streamed_smem_bytes(n1, groups, y.dtype)), n1, y.device)
-        layout = group_layout(f.coords, f.data, f.shape, groups)
-        if kernel == "streamed":
-            packed = streamed_records(layout, y.dtype)
-    with span("qgs.layout_in"):             # their uploads
-        lengths = torch.as_tensor(layout.lengths, device=y.device)
-        if kernel == "streamed":
-            recs = torch.as_tensor(packed, device=y.device)
-            scratch = y.new_empty((-(-B // LANES), 2, n1 - 1, LANES))
-        else:
-            jk, ctl = (torch.as_tensor(a, device=y.device)
-                       for a in (layout.jk, layout.ctl))
-            vals = torch.as_tensor(layout.vals, dtype=y.dtype,
-                                   device=y.device)
+    kernel, tables = plan_tables(f, K1, kernel, y.dtype, y.device, groups)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(y.device).cuda_stream
     if kernel == "streamed":
+        lengths, recs = tables
+        scratch = y.new_empty((-(-B // LANES), 2, n1 - 1, LANES))
         with torch.cuda.device(y.device):
             err = getattr(lib, _STREAMED_FNS[y.dtype])(
                 recs.data_ptr(), lengths.data_ptr(), recs.shape[0],
@@ -478,6 +598,7 @@ def _launch(kernel, f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
         raise_on_error(err, "rk4_streamed")
         launches_streamed += 1
         return out, records
+    lengths, jk, ctl, vals = tables
     with torch.cuda.device(y.device):
         err = getattr(lib, _FNS[y.dtype])(
             jk.data_ptr(), ctl.data_ptr(), vals.data_ptr(),

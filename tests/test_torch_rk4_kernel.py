@@ -8,6 +8,7 @@ runs the plain version and launches nothing; the kernel itself is compared
 with its plain version only on a CUDA card (marked ``cuda``), where a
 traced ``integrate`` also records its launch's spans."""
 
+import copy
 import json
 
 import jax.numpy as jnp
@@ -19,8 +20,9 @@ from qgs_tpu.integrators.rk import make_rk_step, rk4_tableau, time_grid
 from qgs_tpu.models.tendencies import create_tendencies as jax_create_tendencies
 from qgs_tpu.ops.pallas_kernels import make_pallas_rk4_f32
 from qgs_tpu_torch.integrators.rk import integrate_runge_kutta
-from qgs_tpu_torch.ops import _build, fused_rk4
+from qgs_tpu_torch.ops import _build, fused_df_rk4, fused_rk4
 from qgs_tpu_torch.ops.contraction import from_numpy
+from qgs_tpu_torch.ops.twofloat import DfTendency, df_from_f64
 from qgs_tpu_torch.utils import profiling
 from qgs_tpu_torch.utils.profiling import trace
 
@@ -225,20 +227,19 @@ def test_kernel_matches_plain_version_on_card(maooam, cuda_device, dtype, tol,
                                rec_ref.cpu().numpy(), **tol)
 
 
-LAUNCH_SPANS = ("qgs.route", "qgs.layout", "qgs.layout_in")
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["resident", "streamed"])
 def test_traced_integrate_records_the_launch_spans(maooam, cuda_device,
                                                    kernel, tmp_path,
                                                    monkeypatch):
     """Under ``trace``, each float64 ``integrate`` on the card records
-    ``qgs.route``, ``qgs.layout`` and ``qgs.layout_in`` once a launch, and
-    ``qgs.state_in`` twice (the state, the time grid), on the resident
-    kernel and on the streamed one (chosen by a shared-memory limit that
-    only its layout fits); each builds its layout once, and the spans are
-    host operations of the trace, none on the device's timeline."""
+    ``qgs.route`` and ``qgs.layout`` once a launch, and ``qgs.state_in``
+    twice (the state, the time grid), on the resident kernel and on the
+    streamed one (chosen by a shared-memory limit that only its layout
+    fits); the first launch builds the tendency's launch plan (one layout,
+    one ``qgs.layout_in``) and the second is served by it (one plan hit);
+    the spans are host operations of the trace, none on the device's
+    timeline."""
     pars, _, tensor = maooam
     f = _port(tensor, torch.float64, cuda_device)
     if kernel == "streamed":
@@ -250,6 +251,7 @@ def test_traced_integrate_records_the_launch_spans(maooam, cuda_device,
     ic = np.random.default_rng(3).random((64, pars.ndim)) * 0.01
     profiling.reset_spans()
     before, builds = getattr(fused_rk4, counter), fused_rk4.layout_builds
+    hits = fused_rk4.plan_hits
     with trace(str(tmp_path)):
         for _ in range(2):
             integrate_runge_kutta(f, 0., 1., 0.1, ic=ic, write_steps=5)
@@ -257,11 +259,244 @@ def test_traced_integrate_records_the_launch_spans(maooam, cuda_device,
     totals = profiling.span_totals()
     profiling.reset_spans()
     assert getattr(fused_rk4, counter) - before == 2
-    assert fused_rk4.layout_builds - builds == 2
-    assert {name: totals[name][0] for name in LAUNCH_SPANS} == dict.fromkeys(
-        LAUNCH_SPANS, 2)
+    assert fused_rk4.layout_builds - builds == 1
+    assert fused_rk4.plan_hits - hits == 1
+    assert {name: totals[name][0] for name in (
+        "qgs.route", "qgs.layout", "qgs.layout_in")} == {
+        "qgs.route": 2, "qgs.layout": 2, "qgs.layout_in": 1}
     assert totals["qgs.state_in"][0] == 4
     (path,) = tmp_path.glob("*.pt.trace.json")
     cats = {e["cat"] for e in json.loads(path.read_text())["traceEvents"]
             if e.get("name", "").startswith("qgs.")}
     assert cats == {"cpu_op"}
+
+
+# -- the launch plan ----------------------------------------------------------
+
+H100_OPTIN = 232448      # the H100's opt-in shared memory a block (bytes)
+
+
+def _streamed_limit(f, dtype=torch.float64):
+    """A shared-memory limit that only the streamed K1's layout fits."""
+    return fused_rk4.streamed_smem_bytes(f.shape[0], fused_rk4.DEFAULT_GROUPS,
+                                         dtype)
+
+
+def test_launch_plan_is_built_once_a_key(maooam):
+    """Two requests for one key give one plan; its tables are built (one
+    ``group_layout``) at the first and served from the plan at the second,
+    which counts a plan hit; the plan's choice is ``choose_kernel``'s."""
+    _, _, tensor = maooam
+    f = _port(tensor)
+    builds, hits = fused_rk4.layout_builds, fused_rk4.plan_hits
+    plan = fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64, "cpu",
+                                 limit=H100_OPTIN)
+    assert fused_rk4.layout_builds == builds and plan.layout is None
+    got = [fused_rk4.plan_tables(f, fused_rk4.K1, None, torch.float64, "cpu",
+                                 limit=H100_OPTIN) for _ in range(2)]
+    assert fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64,
+                                 torch.device("cpu"),
+                                 limit=H100_OPTIN) is plan
+    assert fused_rk4.layout_builds - builds == 1
+    assert fused_rk4.plan_hits - hits == 1
+    assert got[0][0] == got[1][0] == plan.kernel == "resident"
+    assert all(a is b for a, b in zip(got[0][1], got[1][1]))
+    assert plan.kernel == fused_rk4.choose_kernel(f, torch.float64, "cpu",
+                                                  limit=H100_OPTIN)
+    assert list(f.launch_plans.values()) == [plan]
+
+
+@pytest.mark.parametrize("change", ["groups", "dtype", "limit", "family"])
+def test_launch_plan_is_another_for_another_key(maooam, change):
+    """Another G, dtype, shared-memory limit or kernel family gives another
+    plan beside the first, with the choice ``choose_kernel`` (or
+    ``df_choose_kernel``) makes for it."""
+    _, _, tensor = maooam
+    f = _port(tensor)
+    args = dict(family=fused_rk4.K1, dtype=torch.float64,
+                groups=fused_rk4.DEFAULT_GROUPS, limit=H100_OPTIN)
+    first = fused_rk4.launch_plan(f, device="cpu", **args)
+    args.update({"groups": dict(groups=4), "dtype": dict(dtype=torch.float32),
+                 "limit": dict(limit=_streamed_limit(f)),
+                 "family": dict(family=fused_df_rk4.DF,
+                                dtype=torch.float32)}[change])
+    other = fused_rk4.launch_plan(f, device="cpu", **args)
+    assert other is not first and len(f.launch_plans) == 2
+    assert fused_rk4.launch_plan(f, device="cpu", **args) is other
+    choose = (fused_df_rk4.df_choose_kernel if change == "family"
+              else fused_rk4.choose_kernel)
+    assert other.kernel == choose(f, args["dtype"], "cpu", args["groups"],
+                                  args["limit"])
+    assert other.kernel == ("streamed" if change == "limit" else "resident")
+
+
+@pytest.mark.parametrize("array", ["data", "coords"])
+def test_launch_plan_follows_a_reassigned_tensor(maooam, array):
+    """Reassigning ``f.data`` (or ``f.coords``) gives a new plan whose
+    tables are the new tensor's, and drops the old plans; a change inside
+    the arrays in place is not seen."""
+    _, _, tensor = maooam
+    f = _port(tensor)
+    key = (fused_rk4.K1, None, torch.float64, "cpu")
+    old = fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64, "cpu",
+                                limit=H100_OPTIN)
+    fused_rk4.plan_tables(f, *key, limit=H100_OPTIN)
+    fused_rk4.launch_plan(f, fused_rk4.K1, torch.float32, "cpu",
+                          limit=H100_OPTIN)
+    first = f.data[0]
+    f.data[0] = 1.              # in place: the same arrays, the same plan
+    assert fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64, "cpu",
+                                 limit=H100_OPTIN) is old
+    f.data[0] = first
+    if array == "data":
+        f.data = f.data * 2
+    else:
+        f.coords = f.coords.copy()
+    builds = fused_rk4.layout_builds
+    _, tables = fused_rk4.plan_tables(f, *key, limit=H100_OPTIN)
+    new = fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64, "cpu",
+                                limit=H100_OPTIN)
+    assert new is not old and list(f.launch_plans.values()) == [new]
+    assert fused_rk4.layout_builds - builds == 1
+    assert new.data is f.data and new.coords is f.coords
+    scale = 2. if array == "data" else 1.
+    assert torch.equal(tables[3], torch.as_tensor(old.layout.vals) * scale)
+
+
+@pytest.mark.parametrize("family, dtype, kernel", [
+    ("K1", torch.float64, "resident"), ("K1", torch.float32, "resident"),
+    ("K1", torch.float64, "streamed"), ("K1", torch.float32, "streamed"),
+    ("DF", torch.float32, "resident"), ("DF", torch.float32, "streamed"),
+])
+def test_plan_tables_equal_the_layout(maooam, family, dtype, kernel):
+    """A plan's tables, built on the CPU, are ``group_layout``'s (values in
+    the state's dtype, or K2's (hi, lo) split) and ``streamed_records``'
+    (``df_streamed_records``') bit for bit, in the launcher's order; a
+    forced kernel gets its own tables in the same plan."""
+    _, _, tensor = maooam
+    f = _port(tensor)
+    fam = fused_rk4.K1 if family == "K1" else fused_df_rk4.DF
+    got, tables = fused_rk4.plan_tables(f, fam, kernel, dtype, "cpu",
+                                        limit=H100_OPTIN)
+    lay = fused_rk4.group_layout(f.coords, f.data, f.shape,
+                                 fused_rk4.DEFAULT_GROUPS)
+    if kernel == "streamed":
+        recs = (fused_rk4.streamed_records(lay, dtype) if family == "K1"
+                else fused_df_rk4.df_streamed_records(lay))
+        want = (lay.lengths, recs)
+    elif family == "K1":
+        want = (lay.lengths, lay.jk, lay.ctl,
+                torch.as_tensor(lay.vals, dtype=dtype))
+    else:
+        want = (lay.lengths, lay.jk, lay.ctl,
+                *fused_df_rk4.split_values(lay.vals))
+    assert got == kernel and len(tables) == len(want)
+    for t, w in zip(tables, want):
+        w = torch.as_tensor(w)
+        assert t.device.type == "cpu" and t.dtype == w.dtype
+        assert torch.equal(t, w)
+    plan = fused_rk4.launch_plan(f, fam, dtype, "cpu", limit=H100_OPTIN)
+    assert plan.kernel == "resident" and list(plan.tables) == [kernel]
+    for a, b in zip(plan.layout, lay):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_plan_without_a_kernel_raises(maooam):
+    """A limit that neither kernel fits: the plan's choice is None, and a
+    launch's tables raise the launcher's error, naming that limit."""
+    _, _, tensor = maooam
+    f = _port(tensor)
+    plan = fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64, "cpu",
+                                 limit=1024)
+    assert plan.kernel is None and plan.layout is None
+    with pytest.raises(RuntimeError, match="neither the resident.*the 1024 B"):
+        fused_rk4.plan_tables(f, fused_rk4.K1, None, torch.float64, "cpu",
+                              limit=1024)
+
+
+def test_a_copy_of_the_module_builds_its_own_plans(maooam):
+    """A mesh's replica (``copy.deepcopy`` of the module) starts without
+    plans, and the original keeps its own."""
+    _, _, tensor = maooam
+    f = _port(tensor)
+    plan = fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64, "cpu",
+                                 limit=H100_OPTIN)
+    g = copy.deepcopy(f)
+    assert len(g.launch_plans) == 0
+    assert list(f.launch_plans.values()) == [plan]
+    assert fused_rk4.launch_plan(g, fused_rk4.K1, torch.float64, "cpu",
+                                 limit=H100_OPTIN) is not plan
+
+
+def _k1_run(f, y, dts, kernel):
+    out = fused_rk4._launch(kernel, f, y, dts, 7)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["resident", "streamed"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_stored_plan_launches_bit_equal(maooam, cuda_device, dtype, kernel):
+    """K1 launched from a stored plan (the second launch of one module,
+    a plan hit) is bit-equal to a launch from a fresh module of the same
+    tensor, on the resident and on the streamed kernel (forced)."""
+    pars, _, tensor = maooam
+    f = _port(tensor, dtype, cuda_device)
+    dts = torch.full((50,), 0.1, dtype=torch.float64, device=cuda_device)
+    y = torch.as_tensor(np.random.default_rng(9).random((100, pars.ndim))
+                        * 0.01, dtype=dtype, device=cuda_device)
+    _k1_run(f, y, dts, kernel)
+    hits = fused_rk4.plan_hits
+    got = _k1_run(f, y, dts, kernel)
+    assert fused_rk4.plan_hits - hits == 1
+    fresh = _k1_run(_port(tensor, dtype, cuda_device), y, dts, kernel)
+    assert all(torch.equal(a, b) for a, b in zip(got, fresh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["resident", "streamed"])
+def test_stored_plan_launches_bit_equal_k2(maooam, cuda_device, kernel):
+    """The same for K2, resident and streamed (forced), on a
+    ``DfTendency``."""
+    pars, _, tensor = maooam
+    make = lambda: DfTendency(tensor.coords, tensor.data, tensor.shape,
+                              device=cuda_device)
+    f = make()
+    dts = torch.full((50,), 0.1, dtype=torch.float64, device=cuda_device)
+    y = df_from_f64(torch.as_tensor(
+        np.random.default_rng(10).random((100, pars.ndim)) * 0.01,
+        device=cuda_device))
+
+    def run(g):
+        out = fused_df_rk4._launch(kernel, g, *y, dts, 7)
+        torch.cuda.synchronize()
+        return [t for pair in out for t in pair]
+
+    run(f)
+    hits = fused_rk4.plan_hits
+    got = run(f)
+    assert fused_rk4.plan_hits - hits == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, run(make())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["resident", "streamed"])
+def test_launch_follows_reassigned_data(maooam, cuda_device, kernel):
+    """After ``f.data`` is reassigned, K1's result is the new tensor's:
+    bit-equal to a fresh module's of the new values, and not the old
+    result."""
+    pars, _, tensor = maooam
+    f = _port(tensor, torch.float64, cuda_device)
+    dts = torch.full((50,), 0.1, dtype=torch.float64, device=cuda_device)
+    y = torch.as_tensor(np.random.default_rng(11).random((64, pars.ndim))
+                        * 0.01, device=cuda_device)
+    old = _k1_run(f, y, dts, kernel)
+    f.data = f.data * 1.5
+    got = _k1_run(f, y, dts, kernel)
+    fresh = from_numpy(tensor.coords, tensor.data * 1.5, tensor.shape,
+                       torch.float64, cuda_device)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, _k1_run(fresh, y, dts, kernel)))
+    assert not torch.equal(got[0], old[0])
