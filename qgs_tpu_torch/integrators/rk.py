@@ -31,7 +31,8 @@ batch of states (B, ndim), in the tendency's dtype
   tensor operations.  Under a profiler, :func:`integrate_runge_kutta`
   marks the state's and the time grid's uploads with the span
   ``qgs.state_in`` and the kernel's choice with ``qgs.route``
-  (:func:`~qgs_tpu_torch.utils.profiling.span`).
+  (:func:`~qgs_tpu_torch.utils.profiling.span`); the plain step loop
+  counts its steps in :data:`plain_steps`.
 * The coupled (trajectory, tangent) system: :func:`make_tgls_step` and
   :func:`integrate_runge_kutta_tgls` (the tangent through the materialized
   Jacobian, or a direct contraction), :func:`integrate_runge_kutta_tgls_df`
@@ -64,6 +65,9 @@ from qgs_tpu_torch.ops.twofloat import (
 )
 from qgs_tpu_torch.parallel.mesh import map_shards
 from qgs_tpu_torch.utils.profiling import span
+
+plain_steps = 0     # steps of the plain step loop run in this process (a
+                    # step of every shard at once counts once)
 
 
 def rk4_tableau(dtype=torch.float64):
@@ -285,10 +289,12 @@ def _step_loop(step, y, tts, dts, write_steps, record=lambda y: y):
     """Plain step loop: the records at steps 0, w, 2w, ... and the final
     step (the final state alone for w = 0), each passed through
     ``record``, stacked (part by part when a record is a tuple)."""
+    global plain_steps
     n_steps = len(dts)
     recs = [record(y)] if write_steps > 0 else []
     for s in range(n_steps):
         y = step(y, float(tts[s]), float(dts[s]))
+        plain_steps += 1
         if write_steps > 0 and (s + 1) % write_steps == 0:
             recs.append(record(y))
     if write_steps == 0 or n_steps % write_steps:

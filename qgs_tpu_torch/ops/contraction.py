@@ -36,6 +36,10 @@ and all run this path.
   its coefficient is the (B, n, n) Jacobian on the two-level layout (with
   the adjoint and inverse transforms applied on the host), then one
   batched matrix product with the tangent block.
+
+Each evaluation of a two-level contraction counts in
+:data:`two_level_calls` and, under a profiler, runs inside the span
+``qgs.two_level`` (:func:`~qgs_tpu_torch.utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -46,11 +50,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from qgs_tpu_torch.utils.profiling import span
+
 MODES = ("auto", "bucketed", "dense", "coo", "rowsum", "rowsum_fm", "pairsum")
 
 SLOT_BOUND = 1.5         # a two-level layout's slots per kept entry, at most,
                          # where a power-of-two chunk width reaches it (both
                          # levels counted: T4's layouts take 1.37-1.41)
+
+two_level_calls = 0      # two-level contractions evaluated in this process
 
 
 def row_padded(out_idx, n_out, cols, vals):
@@ -254,6 +262,14 @@ class _GatherContraction(nn.Module):
 
     def contract(self, xx):
         """``xx``: the dummy-padded (B, n1) state."""
+        if not self.two_level:
+            return self._contract(xx)
+        global two_level_calls
+        two_level_calls += 1
+        with span("qgs.two_level"):
+            return self._contract(xx)
+
+    def _contract(self, xx):
         prod = self.vals
         for a in range(self.n_idx):
             prod = prod * xx[:, getattr(self, f"idx{a}")]

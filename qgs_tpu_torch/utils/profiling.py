@@ -8,7 +8,8 @@ The reference has no tracing/profiling beyond wall-clock prints
 * :func:`trace` — context manager around ``torch.profiler`` writing a
   TensorBoard/Chrome trace of the host and of every CUDA device;
 * :func:`span` — a named host phase of the integrators' kernel path
-  (``qgs.state_in``, ``qgs.route``, ``qgs.layout``, ``qgs.layout_in``),
+  (``qgs.state_in``, ``qgs.route``, ``qgs.layout``, ``qgs.layout_in``)
+  and of the rank-5 contraction (``qgs.two_level``),
   written into that trace and summed in :func:`span_totals` while a
   profiler runs, one check and nothing else otherwise;
 * :class:`ThroughputMeter` — steps/s and mode-updates/s counters (the
