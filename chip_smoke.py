@@ -36,9 +36,13 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
 7. the rank-5 models (T4 and dynamic-T, ndim 38) built by
    ``create_tendencies`` on the card: ``RungeKuttaIntegrator`` in float64
    (B = 4096, 1000 steps) and twofloat (B = 1024, 300 steps) against the
-   plain float64 version, the card against the CPU (B = 8, 300 steps), no
-   launch of either rank-3 kernel on these paths; ``initialize`` without
-   ``number_of_dimensions``; times and peak memory of the rank-5 TGLS step
+   plain float64 version, the card against the CPU (B = 8, 300 steps), the
+   float64 integrations through K5 (``csrc/rk4_quartic.cu``: one launch a
+   card each) and no launch of either rank-3 kernel; K5 at the T4 cell's
+   call (B = 4096, 500 steps) against its plain version, timed beside its
+   bound and the plain version's time, in float64 at G = 8 and 16 in
+   turns, and in float32 against the plain float32 version;
+   ``initialize`` without ``number_of_dimensions``; times and peak memory of the rank-5 TGLS step
    (B = 256) and of a T4 Benettin window (B = 16); then ``QgsModel`` of
    MAOOAM saved and loaded, integrated (one K1 launch) and fed to
    ``TrajectoriesStatistics``;
@@ -78,8 +82,9 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    the port's ``f`` and ``Df`` on the card;
 11. the examples (``qgs_tpu_torch.examples``), all 16 in their catalog's
    order, each ``main(device="cuda", short=True, plot=False)``, timed,
-   K1's and K2's launches counted (each example must launch the kernels
-   its catalog names, the rank-5 and symbolic ones neither), and each held
+   K1's, K2's and K5's launches counted (each example must launch the
+   kernels its catalog names: the rank-5 ones K5, the symbolic ones
+   none), and each held
    against the same call on the CPU at its module's tolerances;
 12. models past one block's shared memory (MAOOAM 4x4/4x4, ndim 104, and
    6x6/6x6, ndim 228): the Python twins of the four kernels'
@@ -138,6 +143,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 TOL64 = dict(rtol=1e-9, atol=1e-11)    # float64: only the summation order
                                        # and FMA contraction differ
 TOL32 = dict(rtol=1e-4, atol=1e-6)     # float32 kernel vs float64 plain
+# K5 in float32 against the plain float32 version, relative to the plain
+# float64 run's largest |value|: both round every operation to float32
+# (about 6e-8) in other orders (tests/test_torch_rk4_quartic.py, KERNEL_F32)
+K5_F32 = 1e-6
 TOL_DRIVER = dict(rtol=1e-10, atol=1e-12)   # a driver's run vs plain route
 
 # peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet): vector f64
@@ -638,7 +647,8 @@ def rank5_phase(card, dev):
     from qgs_tpu_torch.models.model import QgsModel
     from qgs_tpu_torch.models.tendencies import create_tendencies
     from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
-    from qgs_tpu_torch.ops.contraction import (make_direct_tangent,
+    from qgs_tpu_torch.ops import fused_rk4_quartic as k5
+    from qgs_tpu_torch.ops.contraction import (Tendency, make_direct_tangent,
                                                make_tendency_fns)
     from qgs_tpu_torch.ops.twofloat import (DfTangent, DfTendency,
                                             df_from_f64,
@@ -651,9 +661,10 @@ def rank5_phase(card, dev):
 
     def counts():
         return {"rk4_fused": fused_rk4.launches,
-                "rk4_df_fused": fused_df_rk4.launches}
+                "rk4_df_fused": fused_df_rk4.launches,
+                "rk4_quartic": k5.launches}
 
-    fused_rk4.launches = fused_df_rk4.launches = 0
+    fused_rk4.launches = fused_df_rk4.launches = k5.launches = 0
     for name, scheme in (("t4", dict(T4=True)),
                          ("dynT", dict(dynamic_T=True))):
         res = out[name] = {}
@@ -685,11 +696,16 @@ def rank5_phase(card, dev):
         integ = RungeKuttaIntegrator()
         integ.set_func(f)
         torch.cuda.synchronize()
+        k5.launches = 0
         t0 = time.perf_counter()
         integ.integrate(0., 100., 0.1, ic=ic, write_steps=100)
         times, traj = integ.get_trajectories()
         torch.cuda.synchronize()
         res["f64_B4096_1000_steps_s"] = s64 = time.perf_counter() - t0
+        res["k5_launches"] = k5.launches
+        if k5.launches != torch.cuda.device_count():
+            fail(f"{name}: the float64 integrate ran {k5.launches} K5 "
+                 f"launches, not one a card")
         if tuple(traj.shape) != (4096, n, 11) or not torch.isfinite(
                 traj).all() or len(times) != 11:
             fail(f"{name} float64 trajectory {tuple(traj.shape)}")
@@ -778,6 +794,68 @@ def rank5_phase(card, dev):
               f"({4096 / ms * 1e3:.4g} traj-steps/s), bound {b_ms:.4f} ms "
               f"({b_by}), share {b_ms / ms:.5f}; {card}", flush=True)
 
+        # K5 at the T4 cell's call, B=4096 x 500 steps of dt 0.01 with a
+        # record every 50: its time (better of two) at G = 8 and at K5's
+        # G = 16 in turns (a launch plan's tables at each), its bound, and
+        # the plain version's time (one run) and records, held at TOL64
+        dts500 = torch.full((500,), 0.01, dtype=torch.float64, device=dev)
+        tables = {g: fused_rk4.plan_tables(f.batched, k5.K5, None,
+                                           torch.float64, dev, g)[1]
+                  for g in (8, k5.GROUPS)}
+        per_g = {g: [] for g in tables}
+        for g in list(tables) + list(reversed(tables)):
+            per_g[g].append(best_ms(lambda: k5._run(
+                tables[g], T.shape[0], yb, dts500, 50)))
+        rule = k5.GROUPS
+        got = k5.fused_rk4_quartic(f.batched, yb, dts500, 50)
+        plain = {}
+        plain_ms = cuda_ms(lambda: plain.setdefault(
+            "out", fused_rk4.fused_rk4_reference(f.batched, yb, dts500, 50)))
+        err = max(check_close(f"{name} K5 B=4096 500 steps vs plain {part}",
+                              a, b, TOL64)
+                  for part, a, b in zip(("final", "records"), got,
+                                        plain["out"]))
+        k_ms = min(per_g[rule])
+        b_ms, b_by = bound(*rk4_work(4096, n, T.coords, 500, 8),
+                           PEAK_FLOPS["f64"])
+        res["k5_B4096_500_steps"] = {
+            "ms": k_ms, "groups": rule, "ms_per_groups": per_g,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / k_ms, "max_abs_err": err}
+        print(f"[7] {name} K5 B=4096 x 500 steps: {k_ms:.3f} ms at G={rule} "
+              f"({4096 * 500 / k_ms * 1e3:.4g} traj-steps/s; per G "
+              f"{per_g}), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), share {b_ms / k_ms:.4f}; {card}", flush=True)
+
+        # the same call in float32 (the route's other K5 instantiation),
+        # against the plain float32 version on the same inputs within
+        # K5_F32 of the plain float64 run's largest |value|
+        scale = max(a.abs().max().item() for a in plain["out"])
+        del got, plain
+        f32 = Tendency(T.coords, T.data, T.shape, torch.float32, dev)
+        y32 = yb.float()
+        ms32 = best_ms(lambda: k5.fused_rk4_quartic(f32, y32, dts500, 50))
+        got = k5.fused_rk4_quartic(f32, y32, dts500, 50)
+        plain = {}
+        plain32_ms = cuda_ms(lambda: plain.setdefault(
+            "out", fused_rk4.fused_rk4_reference(f32, y32, dts500, 50)))
+        err32 = max(check_close(
+            f"{name} K5 float32 B=4096 500 steps vs plain float32 {part}",
+            a, b, dict(rtol=0, atol=K5_F32 * scale))
+            for part, a, b in zip(("final", "records"), got, plain["out"]))
+        b_ms, b_by = bound(*rk4_work(4096, n, T.coords, 500, 4),
+                           PEAK_FLOPS["f32"])
+        res["k5_f32_B4096_500_steps"] = {
+            "ms": ms32, "plain_ms": plain32_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms32,
+            "max_abs_err": err32, "err_of_scale": err32 / scale}
+        print(f"[7] {name} K5 float32 B=4096 x 500 steps: {ms32:.3f} ms "
+              f"({4096 * 500 / ms32 * 1e3:.4g} traj-steps/s), plain "
+              f"{plain32_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+              f"{b_ms / ms32:.4f}, gap {err32 / scale:.3e} of scale; {card}",
+              flush=True)
+        del got, plain, f32, y32
+
         if name == "t4":
             # Benettin windows at B=16 (one substep, dt = mdt = 0.1)
             y16 = y[:16]
@@ -826,10 +904,14 @@ def rank5_phase(card, dev):
         if integ.n_dim != n or not torch.isfinite(x).all():
             fail(f"{name}: initialize without number_of_dimensions")
 
-    out["rank5_launches"] = counts()
+    # the rank-3 kernels across the whole phase; K5 in the two float64
+    # integrations alone (the timing launches above are not counted)
+    out["rank5_launches"] = dict(counts(), rk4_quartic=sum(
+        out[m]["k5_launches"] for m in ("t4", "dynT")))
     print(f"[7] launches across the rank-5 runs: {out['rank5_launches']}",
           flush=True)
-    if any(out["rank5_launches"].values()):
+    if out["rank5_launches"]["rk4_fused"] or \
+            out["rank5_launches"]["rk4_df_fused"]:
         fail("a rank-3 kernel was launched on a rank-5 path")
 
     # the dimension probe on MAOOAM (the fault's own case), then QgsModel
@@ -854,7 +936,7 @@ def rank5_phase(card, dev):
     ic = np.random.default_rng(0).random((64, pars.ndim)) * 0.01
     integ = RungeKuttaIntegrator()
     integ.set_func(model.f)
-    fused_rk4.launches = fused_df_rk4.launches = 0
+    fused_rk4.launches = fused_df_rk4.launches = k5.launches = 0
     integ.integrate(0., 100., 0.1, ic=ic, write_steps=10)
     out["qgs_model_launches"] = counts()
     _, traj = integ.get_trajectories()
@@ -867,7 +949,7 @@ def rank5_phase(card, dev):
     print(f"[7] QgsModel(MAOOAM) saved, loaded, integrated: launches "
           f"{out['qgs_model_launches']}", flush=True)
     if out["qgs_model_launches"] != {"rk4_fused": torch.cuda.device_count(),
-                                     "rk4_df_fused": 0}:
+                                     "rk4_df_fused": 0, "rk4_quartic": 0}:
         fail("the loaded QgsModel did not run through one K1 launch a card")
     stats = TrajectoriesStatistics()
     stats.set_integrator(integ)
@@ -1760,16 +1842,16 @@ def compat_phase(f, qgt, card, dev):
 
 # the kernels each example launches on the card (the catalog of
 # qgs_tpu_torch/examples/__init__.py): each of its set at least once, no
-# other (an empty set: neither; the rank-5 models, the host-only and
-# tendency-call examples)
+# other (an empty set: none; the host-only and tendency-call examples)
 EXAMPLE_KERNELS = {
     "rp_atmosphere": {"rk4_fused"}, "maooam_coupled": {"rk4_fused"},
     "ground_coupled": {"rk4_fused"},
     "precision_tiers": {"rk4_fused", "rk4_df_fused"},
     "external_solvers": {"rk4_fused"}, "lyapunov_exponents": {"rk4_fused"},
     "clv_walkthrough": {"rk4_fused"}, "ensemble_statistics": {"rk4_fused"},
-    "distributed_ensembles": {"rk4_fused"}, "dynamic_temperature": set(),
-    "t4_radiation": set(), "diagnostics_tour": {"rk4_fused"},
+    "distributed_ensembles": {"rk4_fused"},
+    "dynamic_temperature": {"rk4_quartic"}, "t4_radiation": {"rk4_quartic"},
+    "diagnostics_tour": {"rk4_fused"},
     "kernel_selection": {"rk4_fused", "rk4_df_fused"},
     "custom_basis": set(), "symbolic_export": set(),
     "auto_continuation": set()}
@@ -1779,8 +1861,8 @@ def examples_phase(card):
     """11. The 16 examples of ``qgs_tpu_torch.examples`` in their catalog's
     order, each ``main(device="cuda", short=True, plot=False)``
     (``selftest=False`` for ``distributed_ensembles``: phase 9 (e) runs
-    that self-test), timed by the host clock after a synchronise, with K1's
-    and K2's launches counted from 0; each held against the same call with
+    that self-test), timed by the host clock after a synchronise, with K1's,
+    K2's and K5's launches counted from 0; each held against the same call with
     ``device="cpu"`` at its module's ``TOLERANCES`` (``symbolic_export``,
     host only, has none and is not run twice).  An example whose launches
     differ from :data:`EXAMPLE_KERNELS`, or that disagrees with the CPU,
@@ -1791,10 +1873,11 @@ def examples_phase(card):
     import torch
     from qgs_tpu_torch import examples
     from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+    from qgs_tpu_torch.ops import fused_rk4_quartic as k5
 
     start = time.perf_counter()
     out = {}
-    totals = {"rk4_fused": 0, "rk4_df_fused": 0}
+    totals = {"rk4_fused": 0, "rk4_df_fused": 0, "rk4_quartic": 0}
     with tempfile.TemporaryDirectory() as outdir:
         for name in examples.NAMES:
             mod = importlib.import_module(f"qgs_tpu_torch.examples.{name}")
@@ -1802,14 +1885,15 @@ def examples_phase(card):
             if name == "distributed_ensembles":
                 kw["selftest"] = False
             torch.cuda.synchronize()
-            fused_rk4.launches = fused_df_rk4.launches = 0
+            fused_rk4.launches = fused_df_rk4.launches = k5.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 got = mod.main(device="cuda", **kw)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = {"rk4_fused": fused_rk4.launches,
-                        "rk4_df_fused": fused_df_rk4.launches}
+                        "rk4_df_fused": fused_df_rk4.launches,
+                        "rk4_quartic": k5.launches}
             for k in totals:
                 totals[k] += launches[k]
             need = EXAMPLE_KERNELS[name]
@@ -1818,7 +1902,7 @@ def examples_phase(card):
                            if launches[k] and k not in need)
             if missed or extra:
                 fail(f"example {name}: launches {launches}, must launch "
-                     f"{sorted(need) or 'neither kernel'}")
+                     f"{sorted(need) or 'no kernel'}")
             t0 = time.perf_counter()
             checks = {}
             if mod.TOLERANCES:
@@ -2971,6 +3055,33 @@ def main():
         })
     kernels[2]["f32_max_abs_err"] = \
         large["streamed_max_abs_err"]["rk4_streamed_f32"]
+    k5_t4 = rank5["t4"]["k5_B4096_500_steps"]
+    kernels.append({
+        "name": "rk4_quartic",
+        "route": "cuda",
+        "source": "qgs_tpu_torch/csrc/rk4_quartic.cu",
+        "replaces": None,
+        "launches": (rank5["rank5_launches"]["rk4_quartic"]
+                     + examples_launches["rk4_quartic"]),
+        # the main path's launches only: phase 7's two float64 integrations
+        # and the examples' (the timing launches are not counted)
+        "rank5_launches": rank5["rank5_launches"]["rk4_quartic"],
+        "examples_launches": examples_launches["rk4_quartic"],
+        "max_abs_err": max(rank5[m]["k5_B4096_500_steps"]["max_abs_err"]
+                           for m in ("t4", "dynT")),
+        "ms": k5_t4["ms"],
+        "plain_ms": k5_t4["plain_ms"],
+        "bound_ms": k5_t4["bound_ms"],
+        "bound_by": k5_t4["bound_by"],
+        "share_of_bound": k5_t4["share_of_bound"],
+        "library_ms": None,
+        "shape": f"T4 B=4096 n=38 steps=500 float64, G={k5_t4['groups']}",
+        "ms_per_groups": k5_t4["ms_per_groups"],
+        "f32": rank5["t4"]["k5_f32_B4096_500_steps"],
+        "dynT": rank5["dynT"]["k5_B4096_500_steps"],
+        "dynT_f32": rank5["dynT"]["k5_f32_B4096_500_steps"],
+        "card": card,
+    })
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"diagnostics": diagnostics}), flush=True)
     print(json.dumps({"rank5": rank5}), flush=True)

@@ -30,9 +30,10 @@ Each module, what it shows, and the kernels it launches on the card:
   row-sharded tendency, a two-process run over gloo.  K1, one launch a
   shard.
 * ``dynamic_temperature``: dynamic 0-th order temperatures (rank 5, ndim
-  38), the direct tangent against ``Df @ dm``.  Neither (plain ops).
+  38), the direct tangent against ``Df @ dm``.  K5.
 * ``t4_radiation``: the quartic T^4 radiation scheme (rank 5), its
-  two-level layout, twofloat against float64.  Neither (plain ops).
+  two-level layout, twofloat against float64.  K5 (float64; twofloat runs
+  plain ops).
 * ``diagnostics_tour``: twelve field diagnostics and an eddy heat flux
   profile of one RP trajectory.  K1.
 * ``kernel_selection``: every ``mode=`` name runs one gather path; which
@@ -44,8 +45,10 @@ Each module, what it shows, and the kernels it launches on the card:
 * ``auto_continuation``: the AUTO-07p files, and the generated python
   against ``f`` on the device.  Neither.
 
-K1 is the fused RK4 kernel (``csrc/rk4_fused.cu``) and K2 its double-float
-twin (``csrc/rk4_df_fused.cu``); the rank-5 models run on plain torch ops.
+K1 is the fused RK4 kernel (``csrc/rk4_fused.cu``), K2 its double-float
+twin (``csrc/rk4_df_fused.cu``) and K5 its rank-5 counterpart
+(``csrc/rk4_quartic.cu``, float64 and float32); other paths of the rank-5
+models run on plain torch ops.
 
 Each module has ``main(device="cuda", short=False, plot=True, outdir=".")``:
 it prints what its JAX counterpart prints and returns a dict of the numbers

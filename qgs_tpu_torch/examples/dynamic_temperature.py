@@ -47,9 +47,10 @@ def main(device="cuda", short=False, plot=True, outdir="."):
     print("variables:", pars.ndim, "->", pars.var_string[:3], "...",
           pars.var_string[-3:])
 
-    # The rank-5 tensor runs on plain torch ops over a two-level layout
-    # (each row's entries in chunks, then the chunk sums): the fused RK4
-    # kernels take rank 3 only.
+    # A tendency call of the rank-5 tensor runs plain torch ops over a
+    # two-level layout (each row's entries in chunks, then the chunk sums);
+    # on a CUDA card a classical RK4 integration of it is one launch of K5,
+    # the fused rank-5 RK4 kernel.
     f, Df, tensor = create_tendencies(pars, return_qgtensor=True,
                                       device=device)
     print("tensor rank:", tensor.tensor.rank, " nnz:", tensor.tensor.nnz)

@@ -25,10 +25,14 @@ batch of states (B, ndim), in the tendency's dtype
   rank-3 :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA state
   runs in one of the two fused double-float kernels
   (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`; the streamed one
-  up to ndim 421) (:func:`fused_route`).  Every other case (the CPU, other
-  tableaux, rank-5 tensors, tendency functions that carry no tensor,
-  models past the streamed kernels' limit) runs the step loop with plain
-  tensor operations.  Under a profiler, :func:`integrate_runge_kutta`
+  up to ndim 421), and classical RK4 of a rank-5 ``Tendency`` on a CUDA
+  state in float32 or float64 in one launch of K5
+  (:func:`qgs_tpu_torch.ops.fused_rk4_quartic.fused_rk4_quartic`) when its
+  records and the state fit one block's shared memory
+  (:func:`fused_route`).  Every other case (the CPU, other tableaux, rank
+  5 in double-float, tendency functions that carry no tensor, models past
+  the kernels' limits) runs the step loop with plain tensor operations.
+  Under a profiler, :func:`integrate_runge_kutta`
   marks the state's and the time grid's uploads with the span
   ``qgs.state_in`` and the kernel's choice with ``qgs.route``
   (:func:`~qgs_tpu_torch.utils.profiling.span`); the plain step loop
@@ -57,6 +61,7 @@ import torch
 
 from qgs_tpu_torch.ops import fused_df_rk4 as _fused_df
 from qgs_tpu_torch.ops import fused_rk4 as _fused
+from qgs_tpu_torch.ops import fused_rk4_quartic as _quartic
 from qgs_tpu_torch.ops.contraction import Tendency, _with_dummy
 from qgs_tpu_torch.ops.twofloat import (
     DfTangent, DfTendency, df_from_f64, df_to_f64, make_df_rk4_step_dynamic,
@@ -257,15 +262,25 @@ def fused_route(f, y, tableau):
     """Whether a fused RK4 kernel runs ``f`` on the state ``y``: classical
     RK4 of a rank-3 :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a
     CUDA state, or of a rank-3
-    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair (the
-    kernels take rank 3 only), that the resident or the streamed kernel
-    can hold on that card: the choice of the tendency's launch plan
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair, that
+    the resident or the streamed kernel can hold on that card; or
+    classical RK4 of a rank-5 ``Tendency`` on a CUDA state in float32 or
+    float64 that K5 (:mod:`qgs_tpu_torch.ops.fused_rk4_quartic`) can hold.
+    The choice is the tendency's launch plan's
     (:func:`~qgs_tpu_torch.ops.fused_rk4.launch_plan`, built at the first
     call and kept on ``f``, so that the launch reads the same choice).
-    Rank 5, other tableaux and models past the streamed kernels' limit (on
-    an H100 from ndim 421 in float64 and twofloat, 843 in float32) take the
+    Other tableaux, rank 5 in double-float, and models past the kernels'
+    limits (on an H100 from ndim 421 in float64 and twofloat, 843 in
+    float32; rank 5 past n1 = 256 or one block's shared memory) take the
     plain step loop, as the JAX package's integrator takes for every
     model."""
+    if isinstance(f, Tendency) and len(f.shape) == 5:
+        if not (_is_rk4(*tableau) and not isinstance(y, tuple) and y.is_cuda
+                and y.dtype in (torch.float32, torch.float64)):
+            return False
+        with span("qgs.route"):
+            return _fused.launch_plan(f, _quartic.K5, y.dtype, y.device,
+                                      _quartic.GROUPS).kernel is not None
     y0 = y[0] if isinstance(y, tuple) else y
     kind, family = ((DfTendency, _fused_df.DF) if isinstance(y, tuple)
                     else (Tendency, _fused.K1))
@@ -324,10 +339,13 @@ def _step_loops(steps, ys, tts, dts, write_steps, record=lambda y: y):
 
 
 def _fused_loop(f, y, dts, write_steps):
-    """The same records from one launch of the fused RK4 kernel."""
+    """The same records from one launch of the fused RK4 kernel of the
+    tensor's rank: K5 for rank 5, else K1."""
     with span("qgs.state_in"):
         dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y.device)
-    final, recs = _fused.fused_rk4(f, y, dts_dev, write_steps)
+    launch = (_quartic.fused_rk4_quartic if len(f.shape) == 5
+              else _fused.fused_rk4)
+    final, recs = launch(f, y, dts_dev, write_steps)
     return _assemble(y, recs, final, len(dts), write_steps)
 
 

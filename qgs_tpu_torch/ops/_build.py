@@ -24,7 +24,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rk4_fused.cu", "rk4_df_fused.cu", "rk4_streamed.cu",
-           "rk4_df_streamed.cu")
+           "rk4_df_streamed.cu", "rk4_quartic.cu")
 HEADERS = ("stream_ring.cuh", "df_ops.cuh")
 # flags of each source's compile (the link adds -shared)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,6 +66,11 @@ def _declare(lib):
                                         i32, ptr, i32, i32, ptr, ptr, ptr,
                                         ptr]
     lib.qgs_rk4_df_streamed.restype = i32
+    for name in ("qgs_rk4_quartic_f32", "qgs_rk4_quartic_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr,
+                       ptr]
+        fn.restype = i32
     lib.qgs_cuda_error_string.argtypes = [i32]
     lib.qgs_cuda_error_string.restype = ctypes.c_char_p
     lib.qgs_rk4_fused_smem_bytes.argtypes = [i32, i32, i32, i32]
@@ -76,6 +81,8 @@ def _declare(lib):
     lib.qgs_rk4_streamed_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_rk4_df_streamed_smem_bytes.argtypes = [i32, i32]
     lib.qgs_rk4_df_streamed_smem_bytes.restype = ctypes.c_longlong
+    lib.qgs_rk4_quartic_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.qgs_rk4_quartic_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_max_smem_optin.argtypes = [i32]
     lib.qgs_max_smem_optin.restype = i32
     return lib

@@ -63,7 +63,8 @@ from qgs_tpu_torch.utils.profiling import span
 launches = 0             # kernel launches in this process (plain runs excluded)
 launches_streamed = 0    # the same for the streamed kernel
 layout_builds = 0        # group_layout calls in this process (both kernels')
-plan_hits = 0            # launches whose tables a stored plan held (both's)
+plan_hits = 0            # launches whose tables a stored plan held (every
+                         # family's: K1's, K2's and K5's)
 
 _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
 _STREAMED_FNS = {torch.float32: "qgs_rk4_streamed_f32",
@@ -107,21 +108,28 @@ def csr_layout(coords, data, shape):
     Entries of output row 0 (the dummy) are dropped; the others keep their
     COO order within a row.  Returns ``(row_ptr (n1 + 1,) int32,
     jk (nnz,) int32 holding j | k << 16, vals (nnz,) float64)``."""
-    coords = np.asarray(coords, np.int64)
-    data = np.asarray(data, np.float64)
-    n1 = int(shape[0])
     if len(shape) != 3:
         raise NotImplementedError("the fused RK4 kernel takes rank-3 tensors")
-    if n1 > 1 << 15:
-        raise ValueError(f"n1 = {n1} exceeds the kernel's 15-bit indices")
+    if int(shape[0]) > 1 << 15:
+        raise ValueError(f"n1 = {shape[0]} exceeds the kernel's 15-bit "
+                         "indices")
+    row_ptr, (j, k), vals = csr_rows(coords, data, shape)
+    return row_ptr, (j | (k << 16)).astype(np.int32), vals
+
+
+def csr_rows(coords, data, shape):
+    """The entries of a COO tensor sorted by output row, for a kernel's
+    layout: those of output row 0 (the dummy) dropped, the others in
+    their COO order within a row.  Returns ``(row_ptr (n1 + 1,) int32,
+    trailing (rank - 1, nnz) int64 indices, vals (nnz,) float64)``."""
+    coords = np.asarray(coords, np.int64)
+    data = np.asarray(data, np.float64)
     keep = coords[0] != 0
     order = np.argsort(coords[0][keep], kind="stable")
-    rows = coords[0][keep][order]
-    j, k = coords[1][keep][order], coords[2][keep][order]
-    row_ptr = np.zeros(n1 + 1, np.int32)
-    row_ptr[1:] = np.cumsum(np.bincount(rows, minlength=n1))
-    jk = (j | (k << 16)).astype(np.int32)
-    return row_ptr, jk, data[keep][order]
+    row_ptr = np.zeros(int(shape[0]) + 1, np.int32)
+    row_ptr[1:] = np.cumsum(np.bincount(coords[0][keep][order],
+                                        minlength=int(shape[0])))
+    return row_ptr, coords[1:, keep][:, order], data[keep][order]
 
 
 class RowGroups(NamedTuple):
@@ -170,21 +178,31 @@ def group_layout(coords, data, shape, groups, rows=None):
     without entries).  Counts the call in :data:`layout_builds`."""
     global layout_builds
     layout_builds += 1
-    row_ptr, jk, vals = csr_layout(coords, data, shape)
     rg = rows if rows is not None else row_groups(coords, shape[0], groups)
-    counts, padded = rg.counts, rg.padded
-    out = GroupLayout(np.zeros((groups, rg.width), np.int32),
-                      np.zeros((groups, rg.width), np.int32),
-                      np.zeros((groups, rg.width)), rg.load.astype(np.int32),
-                      rg.group_of_row)
+    return GroupLayout(*fill_groups(*csr_layout(coords, data, shape), rg))
+
+
+def fill_groups(row_ptr, words, vals, rg):
+    """The group tables of row-sorted entries (``row_ptr`` (n1 + 1,), each
+    entry's index word ``words`` and value ``vals``) as the
+    :class:`RowGroups` ``rg`` assigns their rows: ``(words (G, W) int32,
+    ctl (G, W) int32, vals (G, W) float64, lengths (G,) int32,
+    group_of_row)``, a group's rows in increasing order, each row's
+    entries in their order, padded with zero entries to its chunks."""
+    groups, counts, padded = len(rg.load), rg.counts, rg.padded
+    out = (np.zeros((groups, rg.width), np.int32),
+           np.zeros((groups, rg.width), np.int32),
+           np.zeros((groups, rg.width)), rg.load.astype(np.int32),
+           rg.group_of_row)
+    table, ctl, table_vals = out[:3]
     for g in range(groups):
         pos = 0
         for i in np.flatnonzero(rg.group_of_row == g):
             e = slice(row_ptr[i + 1], row_ptr[i + 2])
-            out.jk[g, pos:pos + counts[i]] = jk[e]
-            out.vals[g, pos:pos + counts[i]] = vals[e]
-            out.ctl[g, pos:pos + padded[i]] = i
-            out.ctl[g, pos + padded[i] - CHUNK:pos + padded[i]] |= LAST
+            table[g, pos:pos + counts[i]] = words[e]
+            table_vals[g, pos:pos + counts[i]] = vals[e]
+            ctl[g, pos:pos + padded[i]] = i
+            ctl[g, pos + padded[i] - CHUNK:pos + padded[i]] |= LAST
             pos += padded[i]
     return out
 
@@ -246,13 +264,14 @@ def streamed_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
 
 
 def pick_kernel(sizes, limit):
-    """The kernel of both launchers' choice, from the shared memory of the
-    resident and the streamed layouts, ``sizes``: ``"resident"`` when the
-    first is at most ``limit`` bytes, else ``"streamed"`` when the second
-    is, else ``None``."""
-    if sizes[0] <= limit:
+    """The kernel of every launcher's choice, from the shared memory of the
+    resident and the streamed layouts, ``sizes`` (None where the family
+    has no such kernel, or it cannot take the tensor): ``"resident"`` when
+    the first is at most ``limit`` bytes, else ``"streamed"`` when the
+    second is, else ``None``."""
+    if sizes[0] is not None and sizes[0] <= limit:
         return "resident"
-    if sizes[1] <= limit:
+    if sizes[1] is not None and sizes[1] <= limit:
         return "streamed"
     return None
 
@@ -282,19 +301,23 @@ def pack_records(layout, words):
     return out
 
 
-def streamed_records(layout, dtype):
-    """:func:`pack_records` of ``layout`` with each value in ``dtype``:
-    a float64 value in its two words (little-endian: low word first), a
-    float32 value in the first word and 0 in the second."""
-    vals = np.asarray(layout.vals, "<f8")
+def value_words(vals, dtype):
+    """Each value of ``vals`` in ``dtype`` as two int32 words, ``(...,
+    2)``: a float64 value in its two words (little-endian: low word
+    first), a float32 value in the first word and 0 in the second."""
+    vals = np.asarray(vals, "<f8")
     if dtype == torch.float64:
-        words = vals.view("<i4").reshape(vals.shape + (2,))
-    elif dtype == torch.float32:
-        words = np.stack([vals.astype("<f4").view("<i4"),
-                          np.zeros(vals.shape, np.int32)], axis=-1)
-    else:
-        raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
-    return pack_records(layout, words)
+        return vals.view("<i4").reshape(vals.shape + (2,))
+    if dtype == torch.float32:
+        return np.stack([vals.astype("<f4").view("<i4"),
+                         np.zeros(vals.shape, np.int32)], axis=-1)
+    raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
+
+
+def streamed_records(layout, dtype):
+    """:func:`pack_records` of ``layout`` with each value in ``dtype``
+    (:func:`value_words`)."""
+    return pack_records(layout, value_words(layout.vals, dtype))
 
 
 def streamed_tendency(recs, lengths, x):
@@ -417,8 +440,14 @@ def _check(f, y, dts, write_every):
 
 def no_kernel_fits(name, sizes, n1, limit, device):
     """The error of a launcher whose tendency fits neither kernel;
-    ``sizes`` the resident and streamed layouts' bytes, ``limit`` the
-    shared memory a block on ``device``."""
+    ``sizes`` the resident and streamed layouts' bytes (the second None
+    for a family without a streamed kernel), ``limit`` the shared memory a
+    block on ``device``."""
+    if sizes[1] is None:
+        return RuntimeError(
+            f"{name} cannot launch: its layout ({sizes[0]} B) of a tensor "
+            f"of n1 = {n1} does not fit the {limit} B of shared memory a "
+            f"block on {device}")
     return RuntimeError(
         f"{name} cannot launch: neither the resident layout ({sizes[0]} B) "
         f"nor the streamed one ({sizes[1]} B) of a tensor of n1 = {n1} fits "
@@ -427,15 +456,18 @@ def no_kernel_fits(name, sizes, n1, limit, device):
 
 class KernelFamily(NamedTuple):
     """What a launch plan needs of a family of fused kernels (the resident
-    and the streamed one of K1, or of the double-float K2): its ``name``
-    (the resident launcher's, a part of the plan's key), ``sizes(n1,
-    groups, width, dtype)`` the resident and the streamed layouts' shared
-    memory, and ``tables(layout, kernel, dtype)`` a kernel's tables of a
-    :class:`GroupLayout`, ``(array, dtype)`` pairs in the launcher's order
-    (dtype None uploads the array in its own)."""
+    and the streamed one of K1, or of the double-float K2, or the rank-5
+    K5 alone): its ``name`` (the resident launcher's, a part of the plan's
+    key), ``sizes(n1, groups, width, dtype)`` the resident and the
+    streamed layouts' shared memory (:func:`pick_kernel`), ``tables(layout,
+    kernel, dtype)`` a kernel's tables of its layout, ``(array, dtype)``
+    pairs in the launcher's order (dtype None uploads the array in its
+    own), and ``layout(coords, data, shape, groups, rows)`` that layout
+    (:func:`group_layout` by default)."""
     name: str
     sizes: Callable
     tables: Callable
+    layout: Callable = group_layout
 
 
 def _k1_sizes(n1, groups, width, dtype):
@@ -474,7 +506,7 @@ class LaunchPlan:
     bytes (``sizes``) and the kernel the route takes (``kernel``:
     ``"resident"``, ``"streamed"`` or ``None``, :func:`pick_kernel`);
     from the first launch of a kernel on (:func:`plan_tables`), the
-    :func:`group_layout` (``layout``) and that kernel's device tables
+    family's layout (``layout``) and that kernel's device tables
     (``tables``, kernel -> tuple of tensors in the launcher's order)."""
 
     def __init__(self, f, family, dtype, device, groups, limit):
@@ -488,11 +520,12 @@ class LaunchPlan:
 
 
 def launch_plan(f, family, dtype, device, groups=DEFAULT_GROUPS, limit=None):
-    """The launch plan (a :class:`LaunchPlan`) of the rank-3 tendency ``f``
-    for the kernel ``family`` (:data:`K1`, or
-    :data:`~qgs_tpu_torch.ops.fused_df_rk4.DF`) in ``dtype`` on
-    ``device``, with ``groups`` row groups and ``limit`` bytes of shared
-    memory a block (by default the card's,
+    """The launch plan (a :class:`LaunchPlan`) of the tendency ``f`` for
+    the kernel ``family`` (:data:`K1`, or
+    :data:`~qgs_tpu_torch.ops.fused_df_rk4.DF`, of a rank-3 tendency;
+    :data:`~qgs_tpu_torch.ops.fused_rk4_quartic.K5` of a rank-5 one) in
+    ``dtype`` on ``device``, with ``groups`` row groups and ``limit``
+    bytes of shared memory a block (by default the card's,
     :func:`~qgs_tpu_torch.ops._build.max_smem_optin`).
 
     The plan is kept on ``f`` (``f.launch_plans``) under ``(family name,
@@ -538,8 +571,8 @@ def plan_tables(f, family, kernel, dtype, device, groups=DEFAULT_GROUPS,
             plan_hits += 1
             return kernel, plan.tables[kernel]
         if plan.layout is None:
-            plan.layout = group_layout(plan.coords, plan.data, plan.shape,
-                                       groups, plan.rows)
+            plan.layout = family.layout(plan.coords, plan.data, plan.shape,
+                                        groups, plan.rows)
         host = family.tables(plan.layout, kernel, dtype)
     with span("qgs.layout_in"):
         tables = plan.tables[kernel] = tuple(

@@ -14,7 +14,10 @@ stated per test:
 
 Also: the two-level layout's bound on T4, the analytic-blocks error, the
 dimension probe (no call on a module that carries its tensor) and the
-routing of rank-5 models away from the rank-3 kernels."""
+routing of rank-5 models: to K5 on the card in float64 and float32, to the
+plain step loop otherwise.  On a CUDA card (marked ``cuda``): K5's
+``integrate`` against the JAX float64 integrator, within 1e-12 of the
+largest |value|."""
 
 import numpy as np
 import pytest
@@ -342,20 +345,29 @@ class _OnCard:
 
 
 def test_rank5_models_route_to_the_step_loop(system, monkeypatch):
-    """The fused RK4 kernels take rank 3 only: ``fused_route`` sends a
-    rank-3 tendency on a CUDA state to them (MAOOAM's layout fits the
-    card's shared memory; the H100's opt-in limit stands in for the card's)
-    and a rank-5 one (float64 or double-float) to the plain step loop."""
-    from qgs_tpu_torch.integrators.rk import rk4_tableau
+    """``fused_route`` on the card (the H100's opt-in limit stands in for
+    the card's): classical RK4 of a float64 or float32 rank-5 ``Tendency``
+    goes to K5 (its layout fits), and of a double-float one, an RK2
+    tableau or a CPU state to the plain step loop; a rank-3 tendency goes
+    to K1 and K2 as before (MAOOAM's layout fits), and on the CPU to the
+    plain loop."""
+    from qgs_tpu_torch.integrators.rk import rk2_tableau, rk4_tableau
     from qgs_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "max_smem_optin", lambda device: 232448)
     s = system
     tab = rk4_tableau()
     T = s["qgt_p"].tensor
     pair = (_OnCard(torch.float32), _OnCard(torch.float32))
-    assert not fused_route(s["f_p"].batched, _OnCard(), tab)
+    f5 = s["f_p"].batched
+    assert fused_route(f5, _OnCard(), tab)
+    f5_32 = con.Tendency(T.coords, T.data, T.shape, torch.float32,
+                         device="cpu")
+    assert fused_route(f5_32, _OnCard(torch.float32), tab)
     assert not fused_route(tf.DfTendency(T.coords, T.data, T.shape,
                                          device="cpu"), pair, tab)
+    assert not fused_route(f5, _OnCard(), rk2_tableau())
+    assert not fused_route(f5, torch.zeros(1, s["n"], dtype=torch.float64),
+                           tab)
     _, pars3 = both_params(maooam)
     f3, _, q3 = create_tendencies(pars3, return_qgtensor=True, device="cpu")
     assert fused_route(f3.batched, _OnCard(), tab)
@@ -400,3 +412,41 @@ def test_initialize_probe_on_card(card, settings):
     _, x = integ.get_trajectories()
     torch.cuda.synchronize()
     assert x.shape == (4, pars.ndim) and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.cuda
+def test_k5_integrate_matches_jax(card, system):
+    """``RungeKuttaIntegrator.integrate`` of the rank-5 tensor on the card
+    (one K5 launch a card; no K1 launch, no plain contraction) against the
+    JAX float64 integrator on the CPU: 64 states, 100 RK4 steps of dt 0.1,
+    a record every 10, within 1e-12 of the largest |value| (the port's
+    plain loop on the CPU lies 2e-16 from the JAX one there; K5 sums in
+    another order)."""
+    from qgs_tpu_torch.ops import fused_rk4
+    from qgs_tpu_torch.ops import fused_rk4_quartic as k5
+    s = system
+    T = s["qgt_p"].tensor
+    f = con.Tendency(T.coords, T.data, T.shape, torch.float64, device="cuda")
+    x0 = np.random.default_rng(11).random((64, s["n"])) * 0.01
+    vr = s["pars"].variables_range
+    x0[:, vr[0]] = 0.1
+    x0[:, vr[2]] = 0.12
+
+    def counts():
+        return [k5.launches, fused_rk4.launches, con.two_level_calls]
+
+    before = counts()
+    integ = RungeKuttaIntegrator()
+    integ.set_func(f)
+    integ.integrate(0., 10., 0.1, ic=x0, write_steps=10)
+    _, traj = integ.get_trajectories()
+    torch.cuda.synchronize()
+    assert np.subtract(counts(), before).tolist() == [
+        torch.cuda.device_count(), 0, 0]
+    _, ref = jax_integrate(s["f_j"].batched, 0., 10., 0.1, x0,
+                           write_steps=10)
+    ref = np.asarray(ref)
+    assert traj.shape == ref.shape == (64, 38, 11)
+    assert traj.device.type == "cuda"
+    np.testing.assert_allclose(traj.cpu().numpy(), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
