@@ -14,18 +14,19 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
 2. build: compiles ``qgs_tpu_torch/csrc/rk4_fused.cu``,
    ``rk4_df_fused.cu``, ``rk4_streamed.cu`` and ``rk4_df_streamed.cu``
    with nvcc (sm_90a), in parallel;
-3. each kernel against its plain PyTorch version on the card, for every
-   choice of row groups G at B = 1, 31, 1000 and 4097 (the RK4 kernel in
+3. each kernel against its plain PyTorch version on the card, at G = 1,
+   2, 4 and 8 row groups (a launch plan's tables at each G,
+   ``GROUPS_TRIED``) at B = 1, 31, 1000 and 4097 (the RK4 kernel in
    float64 and float32, the double-float one on pairs), and the
    integrator's kernel routes against their plain routes;
 4. the main paths, float64 then twofloat, with the kernels' launch counts
    reset just before each; each whole trajectory is held against the plain
    float64 version at the same shapes;
 5. times of each kernel and of its plain version at B = 16384, 1000 steps,
-   of each kernel at its main path's shapes, and of each kernel for every
-   G at B = 4096 and 16384, with each kernel's bound (the least time the
-   card could take for its operations or bytes) and its share of that
-   bound;
+   of each kernel at its main path's shapes, and of each kernel at each
+   G of ``GROUPS_TRIED`` at B = 4096 and 16384, with each kernel's bound
+   (the least time the card could take for its operations or bytes) and
+   its share of that bound;
 6. the tangent-linear and Lyapunov paths on MAOOAM at full width (n_tg =
    n_vec = 36): ``RungeKuttaTglsIntegrator`` in float64 (Taylor, adjoint
    and card-against-CPU checks) and twofloat; backward vectors in both
@@ -37,7 +38,7 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    ``create_tendencies`` on the card: ``RungeKuttaIntegrator`` in float64
    (B = 4096, 1000 steps) and twofloat (B = 1024, 300 steps) against the
    plain float64 version, the card against the CPU (B = 8, 300 steps), the
-   float64 integrations through K5 (``csrc/rk4_quartic.cu``: one launch a
+   float64 integrations through K5 (``csrc/rk4_fused.cu``: one launch a
    card each) and no launch of either rank-3 kernel; K5 at the T4 cell's
    call (B = 4096, 500 steps) against its plain version, timed beside its
    bound and the plain version's time, in float64 at G = 8 and 16 in
@@ -218,6 +219,21 @@ def check_f32_drift(name, got, ref64, ref32, every):
             "gap_to_plain_f32": gap_kp.tolist(),
             "max_abs_err": float(gap_k.max()),
             "max_abs_err_vs_f32": float(gap_kp.max())}
+
+
+# the row groups a block that phases 3 and 5 check and time K1 and K2 at,
+# beside their families' G (a launch plan's tables at each G)
+GROUPS_TRIED = (1, 2, 4, 8)
+
+
+def at_groups(family, f, y, dts, write_every, groups):
+    """One launch of the kernel ``family`` (its plan's choice) on the card
+    state ``y`` (a pair for K2) with ``groups`` row groups a block."""
+    y0 = y[0] if isinstance(y, tuple) else y
+    from qgs_tpu_torch.ops import fused_rk4
+    kernel, tables = fused_rk4.plan_tables(f, family, None, y0.dtype,
+                                           y0.device, groups)
+    return family.run(kernel, tables, f.shape[0], y, dts, write_every)
 
 
 def cuda_ms(fn):
@@ -801,12 +817,12 @@ def rank5_phase(card, dev):
         dts500 = torch.full((500,), 0.01, dtype=torch.float64, device=dev)
         tables = {g: fused_rk4.plan_tables(f.batched, k5.K5, None,
                                            torch.float64, dev, g)[1]
-                  for g in (8, k5.GROUPS)}
+                  for g in (8, k5.K5.groups)}
         per_g = {g: [] for g in tables}
         for g in list(tables) + list(reversed(tables)):
-            per_g[g].append(best_ms(lambda: k5._run(
-                tables[g], T.shape[0], yb, dts500, 50)))
-        rule = k5.GROUPS
+            per_g[g].append(best_ms(lambda: k5.K5.run(
+                "resident", tables[g], T.shape[0], yb, dts500, 50)))
+        rule = k5.K5.groups
         got = k5.fused_rk4_quartic(f.batched, yb, dts500, 50)
         plain = {}
         plain_ms = cuda_ms(lambda: plain.setdefault(
@@ -1355,7 +1371,7 @@ def plain_route():
     fused kernels, for a reference on the same inputs."""
     from qgs_tpu_torch.integrators import rk
     saved = rk.fused_route
-    rk.fused_route = lambda *args: False
+    rk.fused_route = lambda *args: None
     try:
         yield
     finally:
@@ -2007,7 +2023,7 @@ def large_models_phase(card, dev):
     start = time.perf_counter()
     lib = _build.load_library()
     limit = _build.max_smem_optin(dev)
-    G = fused_rk4.DEFAULT_GROUPS
+    G = fused_rk4.K1.groups
     props = torch.cuda.get_device_properties(dev)
     sms = props.multi_processor_count
     smem_sm = getattr(props, "shared_memory_per_multiprocessor", None)
@@ -2019,9 +2035,9 @@ def large_models_phase(card, dev):
                   "twofloat": torch.float32}
 
     def kernel_of(f, precision):
-        choose = (fused_df_rk4.df_choose_kernel if precision == "twofloat"
-                  else fused_rk4.choose_kernel)
-        return choose(f, precisions[precision], dev)
+        family = fused_df_rk4.DF if precision == "twofloat" else fused_rk4.K1
+        return fused_rk4.launch_plan(f, family, precisions[precision],
+                                     dev).kernel
 
     # -- a) the twins against the compiled formulas, and the kernels -------
     models = {}
@@ -2070,6 +2086,7 @@ def large_models_phase(card, dev):
                   "twofloat": fused_route(
                       DfTendency(fb.coords, fb.data, fb.shape, device=dev),
                       df_from_f64(y), rk4_tableau())}
+        routes = {k: getattr(v, "name", None) for k, v in routes.items()}
         if not all(routes.values()):
             fail(f"ndim {ndim}: fused_route {routes}, a kernel fits")
         out["twins"][ndim] = {"nnz": len(fb.data), "width": width,
@@ -2124,7 +2141,7 @@ def large_models_phase(card, dev):
         fb = (DfTendency(f.batched.coords, f.batched.data, f.batched.shape,
                          device=dev) if precision == "twofloat"
               else f.batched)
-        routed = fused_route(fb, state, rk4_tableau())
+        routed = getattr(fused_route(fb, state, rk4_tableau()), "name", None)
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
@@ -2226,13 +2243,13 @@ def large_models_phase(card, dev):
     def forced(f, precision, y, d, kernel, w=7):
         if precision == "twofloat":
             fdf = DfTendency(f.coords, f.data, f.shape, device=dev)
-            got, recs = fused_df_rk4._launch(kernel, fdf, *df_from_f64(y), d,
-                                             w)
+            got, recs = fused_df_rk4.DF.launch(fdf, df_from_f64(y), d, w,
+                                               kernel)
             return torch.stack(got), torch.stack(recs)
         if precision == "float32":
             f = from_numpy(f.coords, f.data, f.shape, torch.float32, dev)
             y = y.float()
-        return fused_rk4._launch(kernel, f, y, d, w)
+        return fused_rk4.K1.launch(f, y, d, w, kernel)
 
     bit_equal = {}
     for ndim, precision in ((36, "float64"), (36, "float32"),
@@ -2299,7 +2316,7 @@ def large_models_phase(card, dev):
     k64, s64 = [], []
     for kernel in ("resident", "streamed", "streamed", "resident"):
         (k64 if kernel == "resident" else s64).append(cuda_ms(
-            lambda: fused_rk4._launch(kernel, f104, yb, dts_b)))
+            lambda: fused_rk4.K1.launch(f104, yb, dts_b, kernel=kernel)))
     k32 = [cuda_ms(lambda: fused_rk4.fused_rk4(f32_104.batched, yb32, dts_b))
            for _ in range(2)]
     plain = cuda_ms(lambda: fused_rk4.fused_rk4_reference(f104, yb, dts_b))
@@ -2398,20 +2415,20 @@ def large_models_phase(card, dev):
           f"100 steps {', '.join(f'{g:.3e}' for g in growth)}; {card}",
           flush=True)
 
-    # the route's host time on MAOOAM-36 (one size check a call), against
-    # the layout that each launch builds
+    # the route's host time on MAOOAM-36 (a launch plan's look-up a call),
+    # against the layout that a plan's first launch builds
     f36 = models[36][1].batched
     t0 = time.perf_counter()
     for _ in range(1000):
-        fused_rk4.choose_kernel(f36, torch.float64, dev)
+        fused_rk4.launch_plan(f36, fused_rk4.K1, torch.float64, dev).kernel
     fits_us = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     for _ in range(100):
         fused_rk4.group_layout(f36.coords, f36.data, f36.shape, G)
     layout_us = (time.perf_counter() - t0) * 1e4
-    out["host_us"] = {"choose_kernel_ndim36": fits_us,
+    out["host_us"] = {"launch_plan_ndim36": fits_us,
                       "group_layout_ndim36": layout_us}
-    print(f"[12] host time a call on ndim 36: choose_kernel {fits_us:.1f} us,"
+    print(f"[12] host time a call on ndim 36: launch_plan {fits_us:.1f} us,"
           f" group_layout {layout_us:.1f} us; {card}", flush=True)
 
     # -- f) launches that cannot run raise ---------------------------------
@@ -2428,18 +2445,18 @@ def large_models_phase(card, dev):
     fdf104 = DfTendency(f104.coords, f104.data, f104.shape, device=dev)
     y228 = torch.zeros((32, 228), dtype=torch.float64, device=dev)
     for name, call, match in (
-            ("resident K2 ndim 104", lambda: fused_df_rk4._launch(
-                "resident", fdf104, *ydf, dts_b[:4]),
+            ("resident K2 ndim 104", lambda: fused_df_rk4.DF.launch(
+                fdf104, ydf, dts_b[:4], kernel="resident"),
              "rk4_df_fused launch failed"),
-            ("resident K1 f64 ndim 228", lambda: fused_rk4._launch(
-                "resident", f228, y228, dts_b[:4]),
+            ("resident K1 f64 ndim 228", lambda: fused_rk4.K1.launch(
+                f228, y228, dts_b[:4], kernel="resident"),
              "rk4_fused launch failed"),
             ("K1 f64 n1 600", lambda: fused_rk4.fused_rk4(
                 big, y600, dts_b[:4]), "neither the resident"),
             ("K2 n1 600", lambda: fused_df_rk4.fused_df_rk4(
                 big_df, *df_from_f64(y600), dts_b[:4]), "neither the resident"),
-            ("streamed K1 f64 n1 600", lambda: fused_rk4._launch(
-                "streamed", big, y600, dts_b[:4]),
+            ("streamed K1 f64 n1 600", lambda: fused_rk4.K1.launch(
+                big, y600, dts_b[:4], kernel="streamed"),
              "rk4_streamed launch failed")):
         try:
             call()
@@ -2731,14 +2748,13 @@ def main():
                              device=dev)
         yr, rr = fused_rk4.fused_rk4_reference(f64, yg, dts, 7)
         yr100, _ = fused_rk4.fused_rk4_reference(f64, yg, dts100, 0)
-        for G in fused_rk4.GROUPS:
-            yk, rk = fused_rk4.fused_rk4(f64, yg, dts, 7, groups=G)
+        for G in GROUPS_TRIED:
+            yk, rk = at_groups(fused_rk4.K1, f64, yg, dts, 7, G)
             errs64.append(check_close(f"f64 G={G} B={B} 301 steps final", yk,
                                       yr, TOL64))
             errs64.append(check_close(f"f64 G={G} B={B} records every 7", rk,
                                       rr, TOL64))
-            yk32, _ = fused_rk4.fused_rk4(f32, yg.float(), dts100, 0,
-                                          groups=G)
+            yk32, _ = at_groups(fused_rk4.K1, f32, yg.float(), dts100, 0, G)
             errs32.append(check_close(f"f32 G={G} B={B} 100 steps vs f64 "
                                       "plain", yk32, yr100, TOL32))
     y0 = torch.as_tensor(np.random.default_rng(1).random((1000, n)) * 0.01,
@@ -2767,8 +2783,8 @@ def main():
         ydf = df_from_f64(torch.as_tensor(
             np.random.default_rng(B).random((B, n)) * 0.01, device=dev))
         yr, rr = fused_df_rk4.fused_df_rk4_reference(fdf, *ydf, dts, 7)
-        for G in fused_rk4.GROUPS:
-            yk, rk = fused_df_rk4.fused_df_rk4(fdf, *ydf, dts, 7, groups=G)
+        for G in GROUPS_TRIED:
+            yk, rk = at_groups(fused_df_rk4.DF, fdf, ydf, dts, 7, G)
             errs_df.append(check_close(f"df G={G} B={B} 301 steps final",
                                        df_to_f64(yk), df_to_f64(yr), TOL64))
             errs_df.append(check_close(f"df G={G} B={B} records every 7",
@@ -2902,18 +2918,18 @@ def main():
         yg = yb[:Bg].contiguous()
         yg32, ygdf = yg.float(), df_from_f64(yg)
         for name, run_g, work in (
-                ("f64", lambda d, G: fused_rk4.fused_rk4(f64, yg, d, groups=G),
+                ("f64", lambda d, G: at_groups(fused_rk4.K1, f64, yg, d, 0, G),
                  rk4_work(Bg, n, coo.coords, steps, 8)),
-                ("f32", lambda d, G: fused_rk4.fused_rk4(f32, yg32, d,
-                                                         groups=G),
+                ("f32", lambda d, G: at_groups(fused_rk4.K1, f32, yg32, d, 0,
+                                               G),
                  rk4_work(Bg, n, coo.coords, steps, 4)),
-                ("df", lambda d, G: fused_df_rk4.fused_df_rk4(
-                    fdf, *ygdf, d, groups=G),
+                ("df", lambda d, G: at_groups(fused_df_rk4.DF, fdf, ygdf, d,
+                                              0, G),
                  df_rk4_work(Bg, n, coo.coords, steps))):
-            for G in fused_rk4.GROUPS:
+            for G in GROUPS_TRIED:
                 run_g(dts_b[:10], G)
-            runs_g = {G: [] for G in fused_rk4.GROUPS}
-            for G in fused_rk4.GROUPS + fused_rk4.GROUPS[::-1]:
+            runs_g = {G: [] for G in GROUPS_TRIED}
+            for G in GROUPS_TRIED + GROUPS_TRIED[::-1]:
                 runs_g[G].append(cuda_ms(lambda: run_g(dts_b, G)))
             b_ms, _ = bound(*work, PEAK_FLOPS["f64" if name == "f64"
                                               else "f32"])
@@ -2979,7 +2995,7 @@ def main():
         "share_of_bound": bounds["f64"][0] / times["f64"][0],
         "library_ms": None,
         "shape": f"B={B} n={n} steps={steps} float64, "
-                 f"G={fused_rk4.DEFAULT_GROUPS}",
+                 f"G={fused_rk4.K1.groups}",
         "main_path_max_abs_err_vs_f64": err_main["float64"][1],
         "main_path_s": main_s["float64"],
         "main_path_kernel_ms": main_kernel_ms["float64"],
@@ -3017,7 +3033,7 @@ def main():
         "share_of_bound": bounds["df"][0] / times["df"][0],
         "library_ms": None,
         "shape": f"B={B} n={n} steps={steps} double-float, "
-                 f"G={fused_rk4.DEFAULT_GROUPS}",
+                 f"G={fused_df_rk4.DF.groups}",
         "main_path_max_abs_err_vs_f64": err_main["twofloat"][1],
         "main_path_members_0_7_max_abs_err_vs_f64": err_main["twofloat"][0],
         "main_path_s": main_s["twofloat"],
@@ -3059,7 +3075,7 @@ def main():
     kernels.append({
         "name": "rk4_quartic",
         "route": "cuda",
-        "source": "qgs_tpu_torch/csrc/rk4_quartic.cu",
+        "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
         "replaces": None,
         "launches": (rank5["rank5_launches"]["rk4_quartic"]
                      + examples_launches["rk4_quartic"]),

@@ -1,0 +1,165 @@
+// What the fused RK4 kernels share.  The kernels of K1's design -- the
+// resident K1 and K5 (rk4_fused.cu) and the streamed K1 (rk4_streamed.cu)
+// -- share all of this; the double-float K2 kernels only the launch.
+//
+// K1's design: a block serves kLanes = 32 trajectories with G warps; lane t
+// of every warp serves trajectory t.  The output rows are split into G
+// groups of about equal entry count (host side, longest row first), and
+// warp w walks only group w's entries.  The state lives laid out
+// [variable][lane], so a gather x[j] of a warp falls on neighbouring banks
+// (no bank conflicts), and every lane of a warp reads the same entry record
+// (a broadcast).  A record is 16 bytes, one LDS.128: {packed indices, row
+// | kLast on the row's last chunk, value} (a float value in the third
+// word, the fourth 0; a double in the third and fourth, low word first).
+// A group's entries are read in chunks of kChunk = 2 entries of one row
+// (rows padded with zero entries to whole chunks) into two independent
+// partial sums.  At a row's last chunk its sum goes straight into the RK4
+// accumulator and the next stage's input (combine: no k_i buffers).  Warp
+// w writes only its own rows; every warp reads all rows of the current
+// stage input.  The two stage inputs alternate (xa -> xb -> xa ...), so one
+// barrier per stage orders all of it: after it, every write of the stage's
+// output is visible, and every read of the buffer the next stage
+// overwrites is done.  Lanes past the end of a ragged last block run on a
+// zero state and reach every barrier; only their loads and stores are
+// skipped.
+//
+// The RK4 combine follows qgs_tpu.integrators.rk.make_rk_step term by term:
+// stage inputs y + (dt*a)*k, and y_new = (((y + (dt/6)k1) + (dt/3)k2) +
+// (dt/3)k3) + (dt/6)k4, with dt = dts[s] cast to the state type; a row's
+// entries are summed in another order than the plain version's.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace qgs_rk4 {
+
+constexpr int kLanes = 32;        // trajectories a block, one a lane
+constexpr int kChunk = 2;         // entries a chunk, one partial sum each
+constexpr int kLast = 1 << 16;    // ctl flag: the chunk ends its row
+
+// The value of a 16-byte record.
+__device__ __forceinline__ double rec_value(int4 raw, double) {
+  return __hiloint2double(raw.w, raw.z);
+}
+__device__ __forceinline__ float rec_value(int4 raw, float) {
+  return __int_as_float(raw.z);
+}
+
+// A block's state (B, n) into sy [n][lane] and the stage input xa [n1][lane]
+// (row 0 the dummy xx[0] = 1, in xb too).  No barrier.
+template <typename T>
+__device__ __forceinline__ void load_state(const T* y, int B, int n, T* sy,
+                                           T* xa, T* xb) {
+  const int groups = blockDim.x / kLanes;
+  const int w = threadIdx.x / kLanes;
+  const int t = threadIdx.x % kLanes;
+  const long long b = (long long)blockIdx.x * kLanes + t;
+  const bool live = b < B;
+  const T* yb = y + b * n;
+  for (int i = w; i < n; i += groups) {
+    const T v = live ? yb[i] : T(0);
+    sy[i * kLanes + t] = v;
+    xa[(i + 1) * kLanes + t] = v;
+  }
+  if (w == 0) {
+    xa[t] = T(1);
+    xb[t] = T(1);
+  }
+}
+
+// A row's sum k at output o = row * kLanes + t into acc and into the next
+// stage input xo (row i of the state is row i + 1 of xo); pa is the row's
+// y (STAGE < 3) or acc (STAGE 3), pb its acc (STAGE 1, 2):
+//   STAGE 0: acc = y + c_acc k;  xo = y + c_x k
+//   STAGE 1, 2: acc += c_acc k;  xo = y + c_x k
+//   STAGE 3: y = acc + c_acc k;  xo = y
+template <int STAGE, typename T>
+__device__ __forceinline__ void combine(int o, T k, T pa, T pb,
+                                        T* __restrict__ xo,
+                                        T* __restrict__ y,
+                                        T* __restrict__ acc, T c_acc,
+                                        T c_x) {
+  if (STAGE == 0) {
+    acc[o] = pa + c_acc * k;
+    xo[o + kLanes] = pa + c_x * k;
+  } else if (STAGE < 3) {
+    acc[o] = pb + c_acc * k;
+    xo[o + kLanes] = pa + c_x * k;
+  } else {
+    const T yn = pa + c_acc * k;
+    y[o] = yn;
+    xo[o + kLanes] = yn;
+  }
+}
+
+// n_steps RK4 steps of a block whose state is loaded (load_state) and
+// ordered by a barrier: warp.template stage<S>(x, xo, c_acc, c_x) runs
+// stage S of this warp's rows.  Records sy every write_every steps, then
+// stores the final state into y.
+template <typename T, typename Warp>
+__device__ __forceinline__ void rk4_steps(Warp& warp, T* xa, T* xb,
+                                          const T* sy, T* y, int B, int n,
+                                          const double* dts, int n_steps,
+                                          int write_every, T* records) {
+  const int groups = blockDim.x / kLanes;
+  const int w = threadIdx.x / kLanes;
+  const int t = threadIdx.x % kLanes;
+  const long long b = (long long)blockIdx.x * kLanes + t;
+  const bool live = b < B;
+  int rec_i = 0;
+  for (int step = 0; step < n_steps; ++step) {
+    const T dt = static_cast<T>(dts[step]);
+    const T h = dt * T(0.5);                 // dt * a[1,0] = dt * a[2,1]
+    const T w1 = dt * T(1.0 / 6.0);          // dt * b[0] = dt * b[3]
+    const T w2 = dt * T(1.0 / 3.0);          // dt * b[1] = dt * b[2]
+
+    warp.template stage<0>(xa, xb, w1, h);      // k1
+    __syncthreads();
+    warp.template stage<1>(xb, xa, w2, h);      // k2
+    __syncthreads();
+    warp.template stage<2>(xa, xb, w2, dt);     // k3
+    __syncthreads();
+    warp.template stage<3>(xb, xa, w1, T(0));   // k4 -> y, xa
+    __syncthreads();
+
+    if (write_every > 0 && (step + 1) % write_every == 0) {
+      if (live) {
+        T* out = records + ((long long)rec_i * B + b) * n;
+        for (int i = w; i < n; i += groups) out[i] = sy[i * kLanes + t];
+      }
+      ++rec_i;
+    }
+  }
+  if (live) {
+    T* yb = y + b * n;
+    for (int i = w; i < n; i += groups) yb[i] = sy[i * kLanes + t];
+  }
+}
+
+// One launch of `kernel` over ceil(B / 32) blocks of `groups` warps with
+// `smem` bytes of dynamic shared memory, `valid` false for arguments the
+// kernel cannot take: clears an earlier, unrelated error, then checks the
+// arguments and the shared memory against the card's opt-in limit a block.
+template <typename... Params, typename... Args>
+cudaError_t launch(bool valid, void (*kernel)(Params...), size_t smem,
+                   int groups, int B, void* stream, Args... args) {
+  cudaGetLastError();
+  if (!valid) return cudaErrorInvalidValue;
+  int device = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(
+      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)max_smem) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (B + kLanes - 1) / kLanes;
+  kernel<<<grid, groups * kLanes, smem, (cudaStream_t)stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace qgs_rk4

@@ -85,12 +85,13 @@
 #include <cstdint>
 
 #include "df_ops.cuh"
+#include "rk4_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;        // trajectories a block, one a lane
-constexpr int kChunk = 2;         // entries a chunk, one partial sum each
-constexpr int kLast = 1 << 16;    // ctl flag: the chunk ends its row
+using qgs_rk4::kChunk;
+using qgs_rk4::kLanes;
+using qgs_rk4::kLast;
 constexpr int kMaxGroups = 8;
 constexpr int kRowBytes = kLanes * sizeof(float2);   // a state row, [lane]
 
@@ -289,27 +290,13 @@ int qgs_rk4_df_fused(const int* jk, const int* ctl, const float* vhi,
                      int width, int n1, float* y_hi, float* y_lo, int B,
                      const double* dts, int n_steps, int write_every,
                      float* rec_hi, float* rec_lo, void* stream) {
-  cudaGetLastError();  // clear an earlier, unrelated error
-  if (groups < 1 || groups > kMaxGroups || width < 2 * kChunk ||
-      width % kChunk)
-    return (int)cudaErrorInvalidValue;
-  int device = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = df_smem_bytes(n1, groups, width);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(rk4_df_fused_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + kLanes - 1) / kLanes;
-  rk4_df_fused_kernel<<<grid, groups * kLanes, smem, (cudaStream_t)stream>>>(
-      jk, ctl, vhi, vlo, lengths, width, n1, y_hi, y_lo, B, dts, n_steps,
-      write_every, rec_hi, rec_lo);
-  return (int)cudaGetLastError();
+  const bool valid = groups >= 1 && groups <= kMaxGroups &&
+                     width >= 2 * kChunk && width % kChunk == 0;
+  return (int)qgs_rk4::launch(valid, rk4_df_fused_kernel,
+                              df_smem_bytes(n1, groups, width), groups, B,
+                              stream, jk, ctl, vhi, vlo, lengths, width, n1,
+                              y_hi, y_lo, B, dts, n_steps, write_every,
+                              rec_hi, rec_lo);
 }
 
 // The shared memory a launch of the kernel needs (the wrapper's twin of

@@ -64,14 +64,14 @@
 #include <cstdint>
 
 #include "df_ops.cuh"
+#include "rk4_common.cuh"
 #include "stream_ring.cuh"
 
 namespace {
 
 using qgs_ring::Ring;
-
-constexpr int kLanes = 32;        // trajectories a block, one a lane
-constexpr int kLast = 1 << 16;    // ctl flag: the chunk ends its row
+using qgs_rk4::kLanes;
+using qgs_rk4::kLast;
 constexpr int kMaxGroups = 8;
 constexpr int kRowBytes = kLanes * sizeof(float2);   // a state row, [lane]
 
@@ -294,28 +294,13 @@ int qgs_rk4_df_streamed(const void* recs, const int* lengths, int groups,
                         const double* dts, int n_steps, int write_every,
                         float* rec_hi, float* rec_lo, void* scratch,
                         void* stream) {
-  cudaGetLastError();  // clear an earlier, unrelated error
-  if (groups < 1 || groups > kMaxGroups || width < qgs_ring::kTile ||
-      width % qgs_ring::kTile)
-    return (int)cudaErrorInvalidValue;
-  int device = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = df_streamed_smem_bytes(n1, groups);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(rk4_df_streamed_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + kLanes - 1) / kLanes;
-  rk4_df_streamed_kernel<<<grid, groups * kLanes, smem,
-                           (cudaStream_t)stream>>>(
-      static_cast<const int4*>(recs), lengths, width, n1, y_hi, y_lo, B, dts,
-      n_steps, write_every, rec_hi, rec_lo, static_cast<float2*>(scratch));
-  return (int)cudaGetLastError();
+  const bool valid = groups >= 1 && groups <= kMaxGroups &&
+                     width >= qgs_ring::kTile && width % qgs_ring::kTile == 0;
+  return (int)qgs_rk4::launch(
+      valid, rk4_df_streamed_kernel, df_streamed_smem_bytes(n1, groups),
+      groups, B, stream, static_cast<const int4*>(recs), lengths, width, n1,
+      y_hi, y_lo, B, dts, n_steps, write_every, rec_hi, rec_lo,
+      static_cast<float2*>(scratch));
 }
 
 // The shared memory a launch of the kernel needs (the wrapper's twin of

@@ -31,15 +31,15 @@
 //     row's y / accumulator when the row starts, so the L2 round trip
 //     overlaps the row's chunks.  Shared memory is then 2 n1 32
 //     sizeof(T) bytes plus the rings: double reaches ndim 421, float 843;
-//   * the rest is rk4_fused.cu's: a block of 32 trajectories with G warps
-//     (G in 1, 2, 4, 8), warp w walking group w's rows; chunks of two
-//     entries of one row into two partial sums, the next chunk's records
-//     read before the current chunk's multiply-adds; the row's sum
+//   * the rest is K1's design (rk4_common.cuh): a block of 32 trajectories
+//     with G warps (G in 1, 2, 4, 8), warp w walking group w's rows; chunks
+//     of two entries of one row into two partial sums; the row's sum
 //     combined at its last chunk into the accumulator and the next stage
-//     input (one barrier a stage); lanes past a ragged last block run on a
-//     zero state.  Each row's sum, and the RK4 combine, are the resident
-//     kernel's expressions in its order, so the two kernels give the same
-//     bits wherever both run.
+//     input (one barrier a stage); the step loop.  The chunk loop issues
+//     the current chunk's gathers before the ring's read of the next chunk
+//     (which may wait for a tile).  Each row's sum, and the RK4 combine,
+//     are the resident kernel's expressions in its order, so the two
+//     kernels give the same bits wherever both run.
 //
 // C interface (no PyTorch headers, so nvcc builds it in seconds):
 //   qgs_rk4_streamed_f32 / qgs_rk4_streamed_f64(recs, lengths, groups,
@@ -58,86 +58,71 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "rk4_common.cuh"
 #include "stream_ring.cuh"
 
 namespace {
 
+using namespace qgs_rk4;
 using qgs_ring::Ring;
-
-constexpr int kLanes = 32;        // trajectories a block, one a lane
-constexpr int kChunk = 2;         // entries a chunk, one partial sum each
-constexpr int kLast = 1 << 16;    // ctl flag: the chunk ends its row
-
-__device__ __forceinline__ double rec_value(int4 raw, double) {
-  return __hiloint2double(raw.w, raw.z);
-}
-__device__ __forceinline__ float rec_value(int4 raw, float) {
-  return __int_as_float(raw.z);
-}
 
 template <typename T>
 __host__ __device__ size_t streamed_smem_bytes(int n1, int groups) {
   return qgs_ring::ring_bytes(groups) + sizeof(T) * (size_t)2 * n1 * kLanes;
 }
 
-// One RK4 stage of one warp (rk4_fused.cu's stage, records from the ring
-// and y / acc from device memory): the sums k_i of the warp's rows at the
-// stage input x, each combined at once into its row of acc and of the
-// next stage input xo (row i of the state is row i + 1 of x and xo):
-//   STAGE 0: acc = y + c_acc k;  xo = y + c_x k
-//   STAGE 1, 2: acc += c_acc k;  xo = y + c_x k
-//   STAGE 3: y = acc + c_acc k;  xo = y
-// pa holds the row's y (STAGE < 3) or acc (STAGE 3), pb its acc (STAGE 1,
-// 2), read when the row starts.
-template <int STAGE, typename T>
-__device__ __forceinline__ void stage(Ring& ring, int len,
-                                      const T* __restrict__ x,
-                                      T* __restrict__ xo, T* __restrict__ y,
-                                      T* __restrict__ acc, int t, T c_acc,
-                                      T c_x) {
-  if (len == 0) return;
-  int4 ra, rb;
-  ring.read(ra, rb);
-  int jka = ra.x, ctla = ra.y, jkb = rb.x;
-  T va = rec_value(ra, T(0)), vb = rec_value(rb, T(0));
-  int o = (ctla & 0xffff) * kLanes + t;
-  T pa = STAGE < 3 ? y[o] : acc[o];
-  T pb = (STAGE == 1 || STAGE == 2) ? acc[o] : T(0);
-  T s0 = T(0), s1 = T(0);
-  for (int e = 0; e < len; e += kChunk) {
-    const T xja = x[(jka & 0xffff) * kLanes + t];
-    const T xka = x[(jka >> 16) * kLanes + t];
-    const T xjb = x[(jkb & 0xffff) * kLanes + t];
-    const T xkb = x[(jkb >> 16) * kLanes + t];
-    int4 na, nb;                          // the next chunk, read ahead
-    ring.read(na, nb);
-    s0 += va * xja * xka;
-    s1 += vb * xjb * xkb;
-    if (ctla & kLast) {                   // the same for the whole warp
-      const T k = s0 + s1;
-      if (STAGE == 0) {
-        acc[o] = pa + c_acc * k;
-        xo[o + kLanes] = pa + c_x * k;
-      } else if (STAGE < 3) {
-        acc[o] = pb + c_acc * k;
-        xo[o + kLanes] = pa + c_x * k;
-      } else {
-        const T yn = pa + c_acc * k;
-        y[o] = yn;
-        xo[o + kLanes] = yn;
+// A warp's ring of its group's records, and the block's y and accumulator
+// in device memory.
+template <typename T>
+struct Warp {
+  Ring& ring;
+  int len;
+  T* y;
+  T* acc;
+  int t;
+
+  // One RK4 stage (the resident kernel's, records from the ring and y /
+  // acc from device memory): the sums of the warp's rows at the stage input
+  // x, each combined at its row's last chunk into acc and the next stage
+  // input xo.  pa holds the row's y (STAGE < 3) or acc (STAGE 3), pb its
+  // acc (STAGE 1, 2), read when the row starts.
+  template <int STAGE>
+  __device__ __forceinline__ void stage(const T* __restrict__ x,
+                                        T* __restrict__ xo, T c_acc,
+                                        T c_x) {
+    if (len == 0) return;
+    int4 ra, rb;
+    ring.read(ra, rb);
+    int jka = ra.x, ctla = ra.y, jkb = rb.x;
+    T va = rec_value(ra, T(0)), vb = rec_value(rb, T(0));
+    int o = (ctla & 0xffff) * kLanes + t;
+    T pa = STAGE < 3 ? y[o] : acc[o];
+    T pb = (STAGE == 1 || STAGE == 2) ? acc[o] : T(0);
+    T s0 = T(0), s1 = T(0);
+    for (int e = 0; e < len; e += kChunk) {
+      const T xja = x[(jka & 0xffff) * kLanes + t];
+      const T xka = x[(jka >> 16) * kLanes + t];
+      const T xjb = x[(jkb & 0xffff) * kLanes + t];
+      const T xkb = x[(jkb >> 16) * kLanes + t];
+      int4 na, nb;                        // the next chunk, read ahead
+      ring.read(na, nb);
+      s0 += va * xja * xka;
+      s1 += vb * xjb * xkb;
+      if (ctla & kLast) {                 // the same for the whole warp
+        combine<STAGE>(o, s0 + s1, pa, pb, xo, y, acc, c_acc, c_x);
+        s0 = T(0);
+        s1 = T(0);
+        // the next row's y / acc (past the list's end, row 0's: unused)
+        o = (na.y & 0xffff) * kLanes + t;
+        pa = STAGE < 3 ? y[o] : acc[o];
+        pb = (STAGE == 1 || STAGE == 2) ? acc[o] : T(0);
       }
-      s0 = T(0);
-      s1 = T(0);
-      // the next row's y / acc (past the list's end, row 0's: unused)
-      o = (na.y & 0xffff) * kLanes + t;
-      pa = STAGE < 3 ? y[o] : acc[o];
-      pb = (STAGE == 1 || STAGE == 2) ? acc[o] : T(0);
+      jka = na.x; ctla = na.y; va = rec_value(na, T(0));
+      jkb = nb.x; vb = rec_value(nb, T(0));
     }
-    jka = na.x; ctla = na.y; va = rec_value(na, T(0));
-    jkb = nb.x; vb = rec_value(nb, T(0));
+    ring.end_walk();
   }
-  ring.end_walk();
-}
+};
 
 template <typename T>
 __global__ void __launch_bounds__(8 * kLanes)
@@ -162,77 +147,26 @@ rk4_streamed_kernel(const int4* __restrict__ recs,
   const int len = lengths[w];
   Ring ring(recs + (size_t)w * width, len,
             tiles + w * qgs_ring::kSlots * qgs_ring::kTile, t);
-  const long long b = (long long)blockIdx.x * kLanes + t;
-  const bool live = b < B;
-  T* yb = y + b * n;
-  for (int i = w; i < n; i += groups) {
-    const T v = live ? yb[i] : T(0);
-    sy[i * kLanes + t] = v;
-    xa[(i + 1) * kLanes + t] = v;
-  }
-  if (w == 0) {
-    xa[t] = T(1);
-    xb[t] = T(1);
-  }
+  load_state(y, B, n, sy, xa, xb);
   __syncthreads();
   if (len > 0) ring.start();
 
-  int rec_i = 0;
-  for (int step = 0; step < n_steps; ++step) {
-    const T dt = static_cast<T>(dts[step]);
-    const T h = dt * T(0.5);                 // dt * a[1,0] = dt * a[2,1]
-    const T w1 = dt * T(1.0 / 6.0);          // dt * b[0] = dt * b[3]
-    const T w2 = dt * T(1.0 / 3.0);          // dt * b[1] = dt * b[2]
-
-    stage<0>(ring, len, xa, xb, sy, acc, t, w1, h);     // k1
-    __syncthreads();
-    stage<1>(ring, len, xb, xa, sy, acc, t, w2, h);     // k2
-    __syncthreads();
-    stage<2>(ring, len, xa, xb, sy, acc, t, w2, dt);    // k3
-    __syncthreads();
-    stage<3>(ring, len, xb, xa, sy, acc, t, w1, T(0));  // k4 -> y, xa
-    __syncthreads();
-
-    if (write_every > 0 && (step + 1) % write_every == 0) {
-      if (live) {
-        T* out = records + ((long long)rec_i * B + b) * n;
-        for (int i = w; i < n; i += groups) out[i] = sy[i * kLanes + t];
-      }
-      ++rec_i;
-    }
-  }
-  if (live)
-    for (int i = w; i < n; i += groups) yb[i] = sy[i * kLanes + t];
+  Warp<T> warp{ring, len, sy, acc, t};
+  rk4_steps(warp, xa, xb, sy, y, B, n, dts, n_steps, write_every, records);
   if (len > 0) ring.drain();
 }
 
 template <typename T>
-cudaError_t launch(const void* recs, const int* lengths, int groups,
-                   int width, int n1, T* y, int B, const double* dts,
-                   int n_steps, int write_every, T* records, T* scratch,
-                   void* stream) {
-  cudaGetLastError();  // clear an earlier, unrelated error
-  if (groups < 1 || groups > 8 || width < qgs_ring::kTile ||
-      width % qgs_ring::kTile)
-    return cudaErrorInvalidValue;
-  int device = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  const size_t smem = streamed_smem_bytes<T>(n1, groups);
-  if (smem > (size_t)max_smem) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(rk4_streamed_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const int grid = (B + kLanes - 1) / kLanes;
-  rk4_streamed_kernel<T><<<grid, groups * kLanes, smem,
-                           (cudaStream_t)stream>>>(
-      static_cast<const int4*>(recs), lengths, width, n1, y, B, dts, n_steps,
-      write_every, records, scratch);
-  return cudaGetLastError();
+cudaError_t launch_streamed(const void* recs, const int* lengths, int groups,
+                            int width, int n1, T* y, int B, const double* dts,
+                            int n_steps, int write_every, T* records,
+                            T* scratch, void* stream) {
+  const bool valid = groups >= 1 && groups <= 8 &&
+                     width >= qgs_ring::kTile && width % qgs_ring::kTile == 0;
+  return launch(valid, rk4_streamed_kernel<T>,
+                streamed_smem_bytes<T>(n1, groups), groups, B, stream,
+                static_cast<const int4*>(recs), lengths, width, n1, y, B,
+                dts, n_steps, write_every, records, scratch);
 }
 
 }  // namespace
@@ -243,8 +177,9 @@ int qgs_rk4_streamed_f32(const void* recs, const int* lengths, int groups,
                          int width, int n1, float* y, int B,
                          const double* dts, int n_steps, int write_every,
                          float* records, float* scratch, void* stream) {
-  return (int)launch<float>(recs, lengths, groups, width, n1, y, B, dts,
-                            n_steps, write_every, records, scratch, stream);
+  return (int)launch_streamed<float>(recs, lengths, groups, width, n1, y, B,
+                                     dts, n_steps, write_every, records,
+                                     scratch, stream);
 }
 
 int qgs_rk4_streamed_f64(const void* recs, const int* lengths, int groups,
@@ -252,8 +187,9 @@ int qgs_rk4_streamed_f64(const void* recs, const int* lengths, int groups,
                          const double* dts, int n_steps, int write_every,
                          double* records, double* scratch,
                          void* stream) {
-  return (int)launch<double>(recs, lengths, groups, width, n1, y, B, dts,
-                             n_steps, write_every, records, scratch, stream);
+  return (int)launch_streamed<double>(recs, lengths, groups, width, n1, y, B,
+                                      dts, n_steps, write_every, records,
+                                      scratch, stream);
 }
 
 // The shared memory a launch of the kernel needs (the wrapper's twin of

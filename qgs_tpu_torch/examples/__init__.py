@@ -46,9 +46,9 @@ Each module, what it shows, and the kernels it launches on the card:
   against ``f`` on the device.  Neither.
 
 K1 is the fused RK4 kernel (``csrc/rk4_fused.cu``), K2 its double-float
-twin (``csrc/rk4_df_fused.cu``) and K5 its rank-5 counterpart
-(``csrc/rk4_quartic.cu``, float64 and float32); other paths of the rank-5
-models run on plain torch ops.
+twin (``csrc/rk4_df_fused.cu``) and K5 its rank-5 counterpart (K1's
+resident kernel over a four-index entry, float64 and float32); other paths
+of the rank-5 models run on plain torch ops.
 
 Each module has ``main(device="cuda", short=False, plot=True, outdir=".")``:
 it prints what its JAX counterpart prints and returns a dict of the numbers

@@ -14,25 +14,25 @@ batch of states (B, ndim), in the tendency's dtype
   recorded points are ``time[::w]`` plus the final point.
 * The JAX package's ``lax.scan`` over record chunks becomes a step loop that
   keeps only the recorded states.
-* Routing: classical RK4 of a rank-3
-  :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a CUDA state runs the
-  whole loop in one launch of a fused kernel
-  (:func:`qgs_tpu_torch.ops.fused_rk4.fused_rk4`): the resident kernel
+* Routing: classical RK4 on a CUDA state runs the whole loop in one
+  launch of a fused kernel where one fits: :func:`fused_route` returns the
+  kernel family (:class:`~qgs_tpu_torch.ops.fused_rk4.KernelFamily`) that
+  takes the tendency and whose launch plan has a kernel, and the loop
+  launches through it.  A rank-3
+  :class:`~qgs_tpu_torch.ops.contraction.Tendency` in float64 or float32
+  goes to K1 (:data:`~qgs_tpu_torch.ops.fused_rk4.K1`): its resident kernel
   when the tensor's records and the state fit one block's shared memory on
-  that card, else the streamed kernel, which keeps the records in device
+  that card, else its streamed kernel, which keeps the records in device
   memory and only the two stage inputs in shared memory (on an H100 up to
-  ndim 421 in float64, 843 in float32).  Likewise classical RK4 of a
-  rank-3 :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA state
-  runs in one of the two fused double-float kernels
-  (:func:`qgs_tpu_torch.ops.fused_df_rk4.fused_df_rk4`; the streamed one
-  up to ndim 421), and classical RK4 of a rank-5 ``Tendency`` on a CUDA
-  state in float32 or float64 in one launch of K5
-  (:func:`qgs_tpu_torch.ops.fused_rk4_quartic.fused_rk4_quartic`) when its
-  records and the state fit one block's shared memory
-  (:func:`fused_route`).  Every other case (the CPU, other tableaux, rank
-  5 in double-float, tendency functions that carry no tensor, models past
-  the kernels' limits) runs the step loop with plain tensor operations.
-  Under a profiler, :func:`integrate_runge_kutta`
+  ndim 421 in float64, 843 in float32).  A rank-3
+  :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair goes to
+  K2 (:data:`~qgs_tpu_torch.ops.fused_df_rk4.DF`; the streamed kernel up
+  to ndim 421), and a rank-5 ``Tendency`` in float64 or float32 to K5
+  (:data:`~qgs_tpu_torch.ops.fused_rk4_quartic.K5`) when its records and
+  the state fit one block's shared memory.  Every other case (the CPU,
+  other tableaux, rank 5 in double-float, tendency functions that carry
+  no tensor, models past the kernels' limits) runs the step loop with
+  plain tensor operations.  Under a profiler, :func:`integrate_runge_kutta`
   marks the state's and the time grid's uploads with the span
   ``qgs.state_in`` and the kernel's choice with ``qgs.route``
   (:func:`~qgs_tpu_torch.utils.profiling.span`); the plain step loop
@@ -62,7 +62,7 @@ import torch
 from qgs_tpu_torch.ops import fused_df_rk4 as _fused_df
 from qgs_tpu_torch.ops import fused_rk4 as _fused
 from qgs_tpu_torch.ops import fused_rk4_quartic as _quartic
-from qgs_tpu_torch.ops.contraction import Tendency, _with_dummy
+from qgs_tpu_torch.ops.contraction import _with_dummy
 from qgs_tpu_torch.ops.twofloat import (
     DfTangent, DfTendency, df_from_f64, df_to_f64, make_df_rk4_step_dynamic,
     make_df_rk_step_dynamic, make_df_tgls_rk4_step_dynamic,
@@ -73,6 +73,9 @@ from qgs_tpu_torch.utils.profiling import span
 
 plain_steps = 0     # steps of the plain step loop run in this process (a
                     # step of every shard at once counts once)
+
+# the fused kernels' families, each taking its own tendencies and states
+_FAMILIES = (_fused.K1, _fused_df.DF, _quartic.K5)
 
 
 def rk4_tableau(dtype=torch.float64):
@@ -259,37 +262,29 @@ def as_state(f, ic, device=None, dtype=None):
 
 
 def fused_route(f, y, tableau):
-    """Whether a fused RK4 kernel runs ``f`` on the state ``y``: classical
-    RK4 of a rank-3 :class:`~qgs_tpu_torch.ops.contraction.Tendency` on a
-    CUDA state, or of a rank-3
-    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` on a CUDA pair, that
-    the resident or the streamed kernel can hold on that card; or
-    classical RK4 of a rank-5 ``Tendency`` on a CUDA state in float32 or
-    float64 that K5 (:mod:`qgs_tpu_torch.ops.fused_rk4_quartic`) can hold.
-    The choice is the tendency's launch plan's
+    """The kernel family that runs ``f`` on the state ``y`` (a (hi, lo)
+    pair in double-float), or None for the plain step loop: classical RK4
+    on a CUDA state, the family that takes the tendency module and the
+    state (:meth:`~qgs_tpu_torch.ops.fused_rk4.KernelFamily.takes`: K1 a
+    rank-3 ``Tendency`` in float64 or float32, K2 a rank-3 ``DfTendency``
+    on a float32 pair, K5 a rank-5 ``Tendency`` in float64 or float32),
+    where its launch plan has a kernel
     (:func:`~qgs_tpu_torch.ops.fused_rk4.launch_plan`, built at the first
     call and kept on ``f``, so that the launch reads the same choice).
     Other tableaux, rank 5 in double-float, and models past the kernels'
-    limits (on an H100 from ndim 421 in float64 and twofloat, 843 in
+    limits (on an H100 from ndim 422 in float64 and twofloat, 844 in
     float32; rank 5 past n1 = 256 or one block's shared memory) take the
     plain step loop, as the JAX package's integrator takes for every
     model."""
-    if isinstance(f, Tendency) and len(f.shape) == 5:
-        if not (_is_rk4(*tableau) and not isinstance(y, tuple) and y.is_cuda
-                and y.dtype in (torch.float32, torch.float64)):
-            return False
-        with span("qgs.route"):
-            return _fused.launch_plan(f, _quartic.K5, y.dtype, y.device,
-                                      _quartic.GROUPS).kernel is not None
     y0 = y[0] if isinstance(y, tuple) else y
-    kind, family = ((DfTendency, _fused_df.DF) if isinstance(y, tuple)
-                    else (Tendency, _fused.K1))
-    if not (_is_rk4(*tableau) and isinstance(f, kind) and len(f.shape) == 3
-            and y0.is_cuda):
-        return False
+    if not (_is_rk4(*tableau) and y0.is_cuda):
+        return None
+    family = next((fam for fam in _FAMILIES if fam.takes(f, y)), None)
+    if family is None:
+        return None
     with span("qgs.route"):
         plan = _fused.launch_plan(f, family, y0.dtype, y0.device)
-        return plan.kernel is not None
+        return family if plan.kernel is not None else None
 
 
 def _stack(recs):
@@ -338,31 +333,25 @@ def _step_loops(steps, ys, tts, dts, write_steps, record=lambda y: y):
                            lambda cs: tuple(record(c) for c in cs)))
 
 
-def _fused_loop(f, y, dts, write_steps):
-    """The same records from one launch of the fused RK4 kernel of the
-    tensor's rank: K5 for rank 5, else K1."""
+def _fused_records(family, f, y, dts, write_steps):
+    """The same records from one launch of the kernel ``family``; a
+    double-float pair's as float64."""
+    y0 = y[0] if isinstance(y, tuple) else y
     with span("qgs.state_in"):
-        dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y.device)
-    launch = (_quartic.fused_rk4_quartic if len(f.shape) == 5
-              else _fused.fused_rk4)
-    final, recs = launch(f, y, dts_dev, write_steps)
+        dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y0.device)
+    final, recs = family.launch(f, y, dts_dev, write_steps)
+    if isinstance(y, tuple):
+        y, recs, final = df_to_f64(y), df_to_f64(recs), df_to_f64(final)
     return _assemble(y, recs, final, len(dts), write_steps)
-
-
-def _fused_df_loop(f, y, dts, write_steps):
-    """The same records, as float64, from one launch of the fused
-    double-float RK4 kernel."""
-    dts_dev = torch.as_tensor(dts, dtype=torch.float64, device=y[0].device)
-    final, recs = _fused_df.fused_df_rk4(f, *y, dts_dev, write_steps)
-    return _assemble(df_to_f64(y), df_to_f64(recs), df_to_f64(final),
-                     len(dts), write_steps)
 
 
 def _rk_records(fns, ys, tableau, tts, dts, write_steps):
     """Each shard's stacked records: one fused-kernel launch a shard, else
     one plain step loop over every shard."""
-    if fused_route(fns[0], ys[0], tableau):
-        return [_fused_loop(f, y, dts, write_steps) for f, y in zip(fns, ys)]
+    family = fused_route(fns[0], ys[0], tableau)
+    if family is not None:
+        return [_fused_records(family, f, y, dts, write_steps)
+                for f, y in zip(fns, ys)]
     return _step_loops([make_rk_step(f, *tableau) for f in fns], ys, tts,
                        dts, write_steps)
 
@@ -370,8 +359,9 @@ def _rk_records(fns, ys, tableau, tts, dts, write_steps):
 def _df_records(fns, ys, tableau, tts, dts, write_steps):
     """The same in double-float, from float64 shards, records float64."""
     ys = [df_from_f64(y) for y in ys]
-    if fused_route(fns[0], ys[0], tableau):
-        return [_fused_df_loop(f, y, dts, write_steps)
+    family = fused_route(fns[0], ys[0], tableau)
+    if family is not None:
+        return [_fused_records(family, f, y, dts, write_steps)
                 for f, y in zip(fns, ys)]
     steps = [make_df_rk4_step_dynamic(f) if _is_rk4(*tableau)
              else make_df_rk_step_dynamic(f, *tableau) for f in fns]

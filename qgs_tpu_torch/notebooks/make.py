@@ -201,10 +201,11 @@ groups, plus the state rows of a block of 32 trajectories) in one block's
 shared memory.  Their streamed counterparts (`csrc/rk4_streamed.cu`,
 `csrc/rk4_df_streamed.cu`) keep the entries in device memory, streamed
 through a small ring, and only the two RK4 stage inputs in shared memory.
-Before any launch the launcher computes both needs with its own formulas
-and compares them with the card's opt-in limit (232,448 bytes a block on
-an H100): the resident kernel where it fits, else the streamed one
-(`fused_rk4.choose_kernel`, `fused_df_rk4.df_choose_kernel`).  Only a
+Before any launch the tendency's launch plan computes both needs with the
+launchers' own formulas and compares them with the card's opt-in limit
+(232,448 bytes a block on an H100): the resident kernel where it fits,
+else the streamed one (`fused_rk4.launch_plan(...).kernel`, for K1's
+family `fused_rk4.K1` and K2's `fused_df_rk4.DF`).  Only a
 model past the streamed kernels' limit (on an H100 from ndim 422 in
 float64 and twofloat, 844 in float32) takes the plain step loop on the
 same card, as the JAX package's integrator does for every model.  For
@@ -280,7 +281,8 @@ integ = RungeKuttaIntegrator()
 integ.set_func(f)
 integ.integrate(0., 1., 0.1, ic=ic)
 y0 = torch.as_tensor(ic, device=device)
-print("fused route:", fused_route(f.batched, y0, rk4_tableau()),
+route = fused_route(f.batched, y0, rk4_tableau())
+print("fused route:", route and route.name,
       "| launches K1", fused_rk4.launches, "K2", fused_df_rk4.launches)"""),
     ("md", SMEM_TEXT),
     ("code", """H100_OPTIN = 232448
@@ -291,10 +293,10 @@ for atm, ocean in (((2, 2), (2, 4)), ((4, 4), (4, 4)), ((6, 6), (6, 6))):
     k1 = fused_rk4.smem_bytes(n1, 8, width, torch.float64)
     k2 = fused_df_rk4.df_smem_bytes(n1, 8, width)
     streamed = fused_rk4.streamed_smem_bytes(n1, 8, torch.float64)
-    pick1 = fused_rk4.choose_kernel(fb, torch.float64, "cuda",
-                                    limit=H100_OPTIN)
-    pick2 = fused_df_rk4.df_choose_kernel(fb, torch.float32, "cuda",
-                                          limit=H100_OPTIN)
+    pick1 = fused_rk4.launch_plan(fb, fused_rk4.K1, torch.float64, "cuda",
+                                  limit=H100_OPTIN).kernel
+    pick2 = fused_rk4.launch_plan(fb, fused_df_rk4.DF, torch.float32, "cuda",
+                                  limit=H100_OPTIN).kernel
     print(f"ndim {n1 - 1:3d}: nnz {len(fb.data):6d}, width {width:5d}, "
           f"K1 f64 {k1:7d} B, K2 {k2:7d} B, streamed {streamed:6d} B: "
           f"float64 {pick1}, twofloat {pick2}")"""),

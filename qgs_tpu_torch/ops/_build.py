@@ -24,8 +24,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rk4_fused.cu", "rk4_df_fused.cu", "rk4_streamed.cu",
-           "rk4_df_streamed.cu", "rk4_quartic.cu")
-HEADERS = ("stream_ring.cuh", "df_ops.cuh")
+           "rk4_df_streamed.cu")
+HEADERS = ("rk4_common.cuh", "stream_ring.cuh", "df_ops.cuh")
 # flags of each source's compile (the link adds -shared)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,29 +48,25 @@ def _nvcc():
 
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("qgs_rk4_fused_f32", "qgs_rk4_fused_f64"):
+    # the resident K1's and K5's launches; the streamed K1's add its scratch
+    resident = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr, ptr]
+    for name, argtypes in (
+            ("qgs_rk4_fused_f32", resident), ("qgs_rk4_fused_f64", resident),
+            ("qgs_rk4_quartic_f32", resident),
+            ("qgs_rk4_quartic_f64", resident),
+            ("qgs_rk4_streamed_f32", resident[:-1] + [ptr, ptr]),
+            ("qgs_rk4_streamed_f64", resident[:-1] + [ptr, ptr])):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32,
-                       i32, ptr, ptr]
+        fn.argtypes = argtypes
         fn.restype = i32
     lib.qgs_rk4_df_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                      ptr, ptr, i32, ptr, i32, i32, ptr, ptr,
                                      ptr]
     lib.qgs_rk4_df_fused.restype = i32
-    for name in ("qgs_rk4_streamed_f32", "qgs_rk4_streamed_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr,
-                       ptr, ptr]
-        fn.restype = i32
     lib.qgs_rk4_df_streamed.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr,
                                         i32, ptr, i32, i32, ptr, ptr, ptr,
                                         ptr]
     lib.qgs_rk4_df_streamed.restype = i32
-    for name in ("qgs_rk4_quartic_f32", "qgs_rk4_quartic_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr,
-                       ptr]
-        fn.restype = i32
     lib.qgs_cuda_error_string.argtypes = [i32]
     lib.qgs_cuda_error_string.restype = ctypes.c_char_p
     lib.qgs_rk4_fused_smem_bytes.argtypes = [i32, i32, i32, i32]
@@ -81,8 +77,6 @@ def _declare(lib):
     lib.qgs_rk4_streamed_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_rk4_df_streamed_smem_bytes.argtypes = [i32, i32]
     lib.qgs_rk4_df_streamed_smem_bytes.restype = ctypes.c_longlong
-    lib.qgs_rk4_quartic_smem_bytes.argtypes = [i32, i32, i32, i32]
-    lib.qgs_rk4_quartic_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_max_smem_optin.argtypes = [i32]
     lib.qgs_max_smem_optin.restype = i32
     return lib

@@ -1,40 +1,30 @@
 """
-Fused double-float RK4 kernel
-=============================
+Fused double-float RK4 kernel (K2)
+==================================
 
-Wrapper of the CUDA kernel ``csrc/rk4_df_fused.cu``, the Hopper port of the
-TPU kernel ``make_pallas_df_rk4`` (``qgs_tpu/ops/pallas_kernels.py:107``):
-it advances a batch of double-float states ``(y_hi, y_lo)`` by ``len(dts)``
-classical RK4 steps of a rank-3 quadratic tendency in one launch, step ``s``
-of size ``dts[s]``, and records the state every ``write_every`` steps.
+K2's family (:data:`DF`) for the fused RK4 kernels' one seam
+(:class:`~qgs_tpu_torch.ops.fused_rk4.KernelFamily`): the CUDA kernels
+``csrc/rk4_df_fused.cu`` (resident) and ``csrc/rk4_df_streamed.cu``
+(streamed), the Hopper port of the TPU kernel ``make_pallas_df_rk4``
+(``qgs_tpu/ops/pallas_kernels.py:107``).  They advance a batch of
+double-float states ``(y_hi, y_lo)`` by ``len(dts)`` classical RK4 steps
+of a rank-3 quadratic tendency in one launch, step ``s`` of size
+``dts[s]``, and record the state every ``write_every`` steps, over K1's
+layout (:func:`~qgs_tpu_torch.ops.fused_rk4.group_layout`).
 
-* :func:`fused_df_rk4` launches the kernel for a CUDA state and counts the
-  launch in :data:`launches`.  ``groups`` (one of
-  :data:`~qgs_tpu_torch.ops.fused_rk4.GROUPS`) sets the kernel's row groups
-  (warps) a block, over the layout
-  :func:`~qgs_tpu_torch.ops.fused_rk4.group_layout` of the fused RK4
-  kernel.  For a CPU state it runs the plain version instead (the kernel
-  has no CPU build).
+* :func:`fused_df_rk4` launches a kernel for a CUDA state and counts the
+  launch in :data:`launches` (the streamed kernel's in
+  :data:`launches_streamed`).  For a CPU state it runs the plain version
+  instead (the kernels have no CPU build).
 * :func:`fused_df_rk4_reference` is the plain PyTorch version: a step loop
   of :func:`qgs_tpu_torch.ops.twofloat.make_df_rk4_step_dynamic` over the
   plain contraction :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`.
 * :func:`df_group_tendency` evaluates the double-float tendency through
-  that layout in plain PyTorch, in the kernel's summation order.
-* :func:`df_fits` says, before any launch, whether the kernel's layout of
-  a tendency fits one block's opt-in shared memory
-  (:func:`df_smem_bytes`, the launcher's own formula).
-* The streamed kernel ``csrc/rk4_df_streamed.cu`` is the same port for
-  tensors whose records do not fit: the records stay in device memory
-  (:func:`df_streamed_records`; :func:`df_streamed_tendency` evaluates
-  them in plain PyTorch) and only the two stage inputs stay in shared
-  memory (:func:`df_streamed_smem_bytes`, :func:`df_streamed_fits`).  Its
-  launches count in :data:`launches_streamed`.  :func:`df_choose_kernel`
-  decides by size which of the two runs a tendency, as
-  :func:`~qgs_tpu_torch.ops.fused_rk4.choose_kernel` does for float64 and
-  float32.
-* A launch takes its kernel and tables from the tendency's launch plan of
-  the family :data:`DF`, as K1's launch does from its own
-  (:func:`~qgs_tpu_torch.ops.fused_rk4.plan_tables`).
+  the layout in plain PyTorch, in the kernels' summation order;
+  :func:`df_streamed_tendency` through the streamed kernel's records
+  (:func:`df_streamed_records`).
+* :func:`df_smem_bytes` and :func:`df_streamed_smem_bytes` are the two
+  kernels' shared memory, the formulas of the launch plan's choice.
 """
 
 from __future__ import annotations
@@ -43,17 +33,15 @@ import numpy as np
 import torch
 
 from qgs_tpu_torch.ops import _build
-from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, DEFAULT_GROUPS, GROUPS,
-                                         LANES, LAST, GroupLayout,
-                                         KernelFamily, check_steps,
-                                         pack_records, pick_kernel,
-                                         plan_tables, raise_on_error,
-                                         ring_bytes, row_groups, start_run)
-from qgs_tpu_torch.ops.twofloat import (df_add, df_mul,
+from qgs_tpu_torch.ops.fused_rk4 import (CHUNK, LANES, LAST, TILE,
+                                         GroupLayout, KernelFamily,
+                                         pack_records, raise_on_error,
+                                         ring_bytes, start_run)
+from qgs_tpu_torch.ops.twofloat import (DfTendency, df_add, df_mul,
                                         make_df_rk4_step_dynamic, split_values)
 
-launches = 0             # kernel launches in this process (plain runs excluded)
-launches_streamed = 0    # the same for the streamed kernel
+launches = 0             # resident K2 launches in this process
+launches_streamed = 0    # streamed K2 launches in this process
 
 CHUNK_BYTES = 48         # a chunk of two entries in shared memory (Chunk)
 
@@ -69,22 +57,6 @@ def df_smem_bytes(n1, groups, width):
             + 8 * (3 * (n1 - 1) + 2 * n1) * LANES)
 
 
-def df_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
-    """Whether the kernel can run the rank-3 tendency ``f`` (a module that
-    carries ``coords`` and ``shape``) on ``device``, for state parts of
-    ``dtype`` (float32, the only one the kernel takes): its
-    :func:`df_smem_bytes` at most ``limit`` bytes, by default the opt-in
-    shared memory of one block of that card, which the launcher checks
-    too (:func:`~qgs_tpu_torch.ops._build.max_smem_optin`)."""
-    if dtype != torch.float32:
-        raise TypeError(f"dtype {dtype}: the kernel takes float32 (hi, lo) "
-                        "pairs")
-    width = row_groups(f.coords, f.shape[0], groups).width
-    if limit is None:
-        limit = _build.max_smem_optin(device)
-    return df_smem_bytes(f.shape[0], groups, width) <= limit
-
-
 def df_streamed_smem_bytes(n1, groups):
     """Shared memory of one block of the streamed kernel over a tensor of
     first dimension ``n1``: the rings, then the two stage inputs of ``n1``
@@ -95,36 +67,14 @@ def df_streamed_smem_bytes(n1, groups):
     return ring_bytes(groups) + 8 * 2 * int(n1) * LANES
 
 
-def df_streamed_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
-    """Whether the streamed kernel can run the rank-3 tendency ``f`` on
-    ``device`` for state parts of ``dtype`` (float32 only): its
-    :func:`df_streamed_smem_bytes` at most ``limit`` bytes, by default the
-    opt-in shared memory of one block of that card."""
-    if dtype != torch.float32:
-        raise TypeError(f"dtype {dtype}: the kernel takes float32 (hi, lo) "
-                        "pairs")
-    if limit is None:
-        limit = _build.max_smem_optin(device)
-    return df_streamed_smem_bytes(f.shape[0], groups) <= limit
-
-
-def df_choose_kernel(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
-    """Which kernel :func:`fused_df_rk4` launches for the rank-3 tendency
-    ``f``: ``"resident"`` when :func:`df_fits`, else ``"streamed"`` when
-    :func:`df_streamed_fits`, else ``None``."""
-    if limit is None:
-        limit = _build.max_smem_optin(device)
-    width = row_groups(f.coords, f.shape[0], groups).width
-    return pick_kernel(DF.sizes(f.shape[0], groups, width, dtype), limit)
-
-
 def df_streamed_records(layout):
     """The streamed kernel's records of ``layout``
     (:func:`~qgs_tpu_torch.ops.fused_rk4.pack_records`), each value as its
     float32 (hi, lo) split, hi in the third word and lo in the fourth."""
     vhi, vlo = split_values(layout.vals)
-    return pack_records(layout, np.stack([vhi.view("<i4"), vlo.view("<i4")],
-                                         axis=-1))
+    return pack_records(layout.jk, layout.ctl,
+                        np.stack([vhi.view("<i4"), vlo.view("<i4")], axis=-1),
+                        TILE)
 
 
 def _df_sizes(n1, groups, width, dtype):
@@ -140,10 +90,6 @@ def _df_tables(layout, kernel, dtype):
     vhi, vlo = split_values(layout.vals)
     return ((layout.lengths, None), (layout.jk, None), (layout.ctl, None),
             (vhi, None), (vlo, None))
-
-
-# K2's launch plans (:func:`~qgs_tpu_torch.ops.fused_rk4.launch_plan`)
-DF = KernelFamily("rk4_df_fused", _df_sizes, _df_tables)
 
 
 def df_streamed_tendency(recs, lengths, x_hi, x_lo):
@@ -229,72 +175,19 @@ def df_group_tendency(layout, x_hi, x_lo, split=None):
     return out
 
 
-def _check(f, y_hi, y_lo, dts, write_every):
-    if not hasattr(f, "coords"):
-        raise TypeError("fused_df_rk4 needs a DfTendency module (it carries "
-                        "the rank-3 tensor the kernel runs)")
-    n = f.shape[0] - 1
-    for name, y in (("y_hi", y_hi), ("y_lo", y_lo)):
-        if y.dtype != torch.float32:
-            raise TypeError(f"{name} dtype {y.dtype}: the kernel takes "
-                            "float32 (hi, lo) pairs")
-        if y.dim() != 2 or y.shape[1] != n or y.shape != y_hi.shape:
-            raise ValueError(f"{name} shape {tuple(y.shape)}: expected (B, "
-                             f"{n}), the same for hi and lo")
-        if not y.is_contiguous() or y.device != y_hi.device:
-            raise ValueError(f"{name} must be contiguous and on y_hi's "
-                             "device")
-    check_steps(y_hi, dts, write_every)
-
-
-def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0, groups=DEFAULT_GROUPS):
-    """Advance the (B, n) double-float state ``(y_hi, y_lo)`` (float32
-    each) by ``len(dts)`` RK4 steps of the tendency module ``f`` (a
-    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`) in one kernel launch;
-    ``dts`` (n_steps,) float64 on the state's device.  ``groups`` (one of
-    :data:`~qgs_tpu_torch.ops.fused_rk4.GROUPS`) sets the kernel's row
-    groups a block.  :func:`df_choose_kernel` decides by size which kernel
-    runs.
-
-    Returns ``((y_hi, y_lo), (rec_hi, rec_lo))``, records (n_steps //
-    write_every, B, n) holding the state after every ``write_every`` steps.
-    The inputs are not modified.  A CPU state runs
-    :func:`fused_df_rk4_reference`; a CUDA state launches a kernel or
-    raises (``RuntimeError`` for a tendency that fits neither kernel)."""
-    return _launch(None, f, y_hi, y_lo, dts, write_every, groups)
-
-
-def _launch(kernel, f, y_hi, y_lo, dts, write_every=0,
-            groups=DEFAULT_GROUPS):
-    """:func:`fused_df_rk4` with ``kernel``, ``"resident"`` or
-    ``"streamed"``, forced (the checks that hold the two kernels bit for
-    bit call this), or the launch plan's choice where it is None
-    (:func:`~qgs_tpu_torch.ops.fused_rk4.plan_tables`).  A forced kernel
-    whose layout does not fit raises the launcher's ``RuntimeError``."""
+def _df_run(kernel, tables, n1, y, dts, write_every):
     global launches, launches_streamed
-    if groups not in GROUPS:
-        raise ValueError(f"groups = {groups}: the kernel takes one of "
-                         f"{GROUPS}")
-    if y_hi.device.type == "cpu":
-        return fused_df_rk4_reference(f, y_hi, y_lo, dts, write_every)
-    if y_hi.device.type != "cuda":
-        raise ValueError(f"fused_df_rk4 runs on CUDA or CPU, not "
-                         f"{y_hi.device}")
-    _check(f, y_hi, y_lo, dts, write_every)
-    B = y_hi.shape[0]
-    n_steps = dts.numel()
-    out_hi, rec_hi = start_run(y_hi, n_steps, write_every)
-    out_lo, rec_lo = start_run(y_lo, n_steps, write_every)
+    (out_hi, rec_hi), (out_lo, rec_lo) = (start_run(p, dts.numel(),
+                                                    write_every) for p in y)
+    B, n_steps = out_hi.shape[0], dts.numel()
     if B == 0 or n_steps == 0:
         return (out_hi, out_lo), (rec_hi, rec_lo)
-    dev = y_hi.device
-    n1 = f.shape[0]
-    kernel, tables = plan_tables(f, DF, kernel, torch.float32, dev, groups)
+    dev = out_hi.device
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if kernel == "streamed":
         lengths, recs = tables
-        scratch = y_hi.new_empty((-(-B // LANES), 3, n1 - 1, LANES, 2))
+        scratch = out_hi.new_empty((-(-B // LANES), 3, n1 - 1, LANES, 2))
         with torch.cuda.device(dev):
             err = lib.qgs_rk4_df_streamed(
                 recs.data_ptr(), lengths.data_ptr(), recs.shape[0],
@@ -314,3 +207,27 @@ def _launch(kernel, f, y_hi, y_lo, dts, write_every=0,
     raise_on_error(err, "rk4_df_fused")
     launches += 1
     return (out_hi, out_lo), (rec_hi, rec_lo)
+
+
+# K2, at K1's G of 8: on the H100 the fastest of 1, 2, 4 and 8 at B = 4096
+# and 16384 (PERF.md, Findings)
+DF = KernelFamily("rk4_df_fused", DfTendency, 3, (torch.float32,), True,
+                  1 << 15, 8, _df_sizes, _df_tables, _df_run,
+                  lambda f, y, dts, write_every: fused_df_rk4_reference(
+                      f, *y, dts, write_every))
+
+
+def fused_df_rk4(f, y_hi, y_lo, dts, write_every=0):
+    """Advance the (B, n) double-float state ``(y_hi, y_lo)`` (float32
+    each) by ``len(dts)`` RK4 steps of the tendency module ``f`` (a
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`) in one launch of K2
+    (:meth:`~qgs_tpu_torch.ops.fused_rk4.KernelFamily.launch` of
+    :data:`DF`); ``dts`` (n_steps,) float64 on the state's device.  The
+    tendency's launch plan decides which kernel runs.
+
+    Returns ``((y_hi, y_lo), (rec_hi, rec_lo))``, records (n_steps //
+    write_every, B, n) holding the state after every ``write_every`` steps.
+    The inputs are not modified.  A CPU state runs
+    :func:`fused_df_rk4_reference`; a CUDA state launches a kernel or
+    raises (``RuntimeError`` for a tendency that fits neither kernel)."""
+    return DF.launch(f, (y_hi, y_lo), dts, write_every)

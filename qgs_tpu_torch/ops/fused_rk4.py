@@ -1,68 +1,72 @@
 """
-Fused RK4 kernel
-================
+Fused RK4 kernels
+=================
 
-Wrapper of the CUDA kernel ``csrc/rk4_fused.cu``, the Hopper port of the TPU
-kernel ``make_pallas_rk4_f32`` (``qgs_tpu/ops/pallas_kernels.py:210``): it
-advances a batch of states by ``len(dts)`` classical RK4 steps of a rank-3
-quadratic tendency in one launch, step ``s`` of size ``dts[s]``, and records
-the state every ``write_every`` steps.
+The port's fused RK4 kernels advance a batch of states by ``len(dts)``
+classical RK4 steps of a sparse polynomial tendency in one launch, step
+``s`` of size ``dts[s]``, and record the state every ``write_every`` steps.
+Their one seam is the kernel family (:class:`KernelFamily`): a family
+decides, from its tendency's launch plan, whether one of its kernels runs
+a tendency, and launches it.  There are three:
 
-* :func:`fused_rk4` launches the kernel for a CUDA state, in float32 or
-  float64, and counts the launch in :data:`launches`.  For a CPU state it
-  runs the plain version instead (the kernel has no CPU build).
-* :func:`fused_rk4_reference` is the plain PyTorch version: the same RK4
-  formula (``qgs_tpu.integrators.rk.make_rk_step``'s, term by term) over the
-  plain contraction :class:`~qgs_tpu_torch.ops.contraction.Tendency`.
-* :func:`group_layout` is the kernel's tensor layout, and the double-float
-  kernel's (:mod:`qgs_tpu_torch.ops.fused_df_rk4`): the output rows split
-  into G groups of about equal entry count, one warp of a block each,
-  every group a flat table of entry records.  :func:`group_tendency`
-  evaluates the tendency through that layout in plain PyTorch, group by
-  group, in the kernel's summation order.
-* :func:`csr_layout` is the row-sorted list of entries that
-  :func:`group_layout` is built from, and :func:`row_groups` its rows'
-  assignment to groups, from the per-row entry counts alone.
-* :func:`fits` says, before any launch, whether the kernel's layout of a
-  tendency fits one block's opt-in shared memory (:func:`smem_bytes`, the
-  launcher's own formula).
-* The streamed kernel ``csrc/rk4_streamed.cu`` is the same port for
-  tensors whose records do not fit: the records stay in device memory
-  (:func:`streamed_records`, ``group_layout``'s tables as 16-byte records
-  padded to whole ring tiles; :func:`streamed_tendency` evaluates them in
-  plain PyTorch) and only the two stage inputs stay in shared memory
-  (:func:`streamed_smem_bytes`, :func:`streamed_fits`).  Its launches
-  count in :data:`launches_streamed`.
-* :func:`choose_kernel` decides by size, before any launch, which of the
-  two runs a tendency: the resident one when it fits, else the streamed
-  one when it fits, else neither (the integrators then take the plain
-  step loop, and :func:`fused_rk4` raises).
-* :func:`launch_plan` is a tendency's launch plan, kept on its module and
-  built once a key: the kernel the route takes and, from the plan's first
-  launch of a kernel on, its :func:`group_layout` and that kernel's device
-  tables (:func:`plan_tables`, which both launchers call).  A launch looks
-  its plan up under the span ``qgs.layout`` and, where the plan is new,
-  uploads its tables under ``qgs.layout_in``
-  (:func:`~qgs_tpu_torch.utils.profiling.span`, recorded only under a
-  profiler); :data:`layout_builds` counts the :func:`group_layout` calls,
-  :data:`plan_hits` the launches served by a stored plan.
+* :data:`K1` (this module): a rank-3 quadratic tendency in float64 or
+  float32, the Hopper port of the TPU kernel ``make_pallas_rk4_f32``
+  (``qgs_tpu/ops/pallas_kernels.py:210``).  Its resident kernel
+  (``csrc/rk4_fused.cu``) keeps the tensor's records and the state in one
+  block's shared memory; its streamed kernel (``csrc/rk4_streamed.cu``)
+  keeps the records in device memory and only the two stage inputs on
+  chip.  Launches count in :data:`launches` and :data:`launches_streamed`.
+* :data:`~qgs_tpu_torch.ops.fused_df_rk4.DF` (K2): the same in
+  double-float.
+* :data:`~qgs_tpu_torch.ops.fused_rk4_quartic.K5`: a rank-5 quartic
+  tendency in float64 or float32, K1's resident kernel over a four-index
+  entry.
+
+A family holds its G (the row groups, one warp each, of a block), the
+tendency module, rank and state dtypes it takes (:meth:`KernelFamily.takes`,
+the route's test; :meth:`KernelFamily.check`, the launch's), the shared
+memory of its layouts, its tables and its launcher.
+:meth:`KernelFamily.launch` is every launch's one path; :func:`fused_rk4`
+is K1's.
+
+The choice of kernel is made in one place, a tendency's launch plan
+(:func:`launch_plan`, kept on its module and built once a key):
+``"resident"`` where the resident layout's shared memory fits one block's
+opt-in limit of the card, else ``"streamed"`` where the streamed one does,
+else none (:func:`pick_kernel`).  From the plan's first launch of a kernel
+on it also holds the family's layout and that kernel's device tables
+(:func:`plan_tables`).  A launch looks its plan up under the span
+``qgs.layout`` and, where the plan is new, uploads its tables under
+``qgs.layout_in`` (:func:`~qgs_tpu_torch.utils.profiling.span`, recorded
+only under a profiler); :data:`layout_builds` counts the
+:func:`group_layout` calls, :data:`plan_hits` the launches of every family
+served by a stored plan.
+
+K1's layout: :func:`group_layout` splits the output rows into G groups of
+about equal entry count, every group a flat table of entry records
+(:func:`csr_layout`, :func:`row_groups`); both K1 kernels read them as
+16-byte records (:func:`resident_records`, :func:`streamed_records`,
+:func:`pack_records`).  :func:`group_tendency` and
+:func:`streamed_tendency` evaluate the tendency through a layout and
+through its records in plain PyTorch, in the kernels' summation order;
+:func:`fused_rk4_reference` is the plain version of a whole launch.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from qgs_tpu_torch.ops import _build
-from qgs_tpu_torch.ops.contraction import _with_dummy
+from qgs_tpu_torch.ops.contraction import Tendency, _with_dummy
 from qgs_tpu_torch.utils.profiling import span
 
-launches = 0             # kernel launches in this process (plain runs excluded)
-launches_streamed = 0    # the same for the streamed kernel
-layout_builds = 0        # group_layout calls in this process (both kernels')
+launches = 0             # resident K1 launches in this process
+launches_streamed = 0    # streamed K1 launches in this process
+layout_builds = 0        # group_layout calls in this process (K1's and K2's)
 plan_hits = 0            # launches whose tables a stored plan held (every
                          # family's: K1's, K2's and K5's)
 
@@ -70,17 +74,11 @@ _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
 _STREAMED_FNS = {torch.float32: "qgs_rk4_streamed_f32",
                  torch.float64: "qgs_rk4_streamed_f64"}
 
-GROUPS = (1, 2, 4, 8)    # the kernel's choices of row groups (warps) a block
-# where the caller sets none, for this kernel and the double-float one: on
-# the H100, G = 8 ties G = 4 at B = 16384 in float64 and is the fastest of
-# GROUPS at B = 4096 and 16384 otherwise (PERF.md, Findings), so no rule on
-# B is needed yet
-DEFAULT_GROUPS = 8
 CHUNK = 2                # entries a chunk: the kernel's partial sums a row
 AHEAD = 1                # chunks the kernel reads past a group's end
 LAST = 1 << 16           # ctl flag: the chunk ends its row
 LANES = 32               # trajectories a block, one a lane
-REC_BYTES = 16           # an entry record in shared memory (Rec<T>)
+REC_BYTES = 16           # an entry record (csrc/rk4_common.cuh)
 # the streamed kernels' rings (csrc/stream_ring.cuh): records a slot (a
 # tile), slots a warp
 TILE = 32
@@ -207,30 +205,21 @@ def fill_groups(row_ptr, words, vals, rg):
     return out
 
 
-def smem_bytes(n1, groups, width, dtype):
-    """Shared memory of one block of the kernel in ``dtype`` (float32 or
-    float64) for a layout of ``groups`` tables of ``width`` records over a
-    tensor of first dimension ``n1``: the records, then four state rows of
-    ``n1`` or ``n`` lanes (``smem_bytes`` of ``csrc/rk4_fused.cu``, which
-    ``chip_smoke.py`` holds this against)."""
+def _itemsize(dtype):
     if dtype not in _FNS:
         raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
-    itemsize = 8 if dtype == torch.float64 else 4
+    return 8 if dtype == torch.float64 else 4
+
+
+def smem_bytes(n1, groups, width, dtype):
+    """Shared memory of one block of the resident kernel (K1's or K5's) in
+    ``dtype`` (float32 or float64) for a layout of ``groups`` tables of
+    ``width`` records over a tensor of first dimension ``n1``: the records,
+    then four state rows of ``n1`` or ``n`` lanes (``smem_bytes`` of
+    ``csrc/rk4_fused.cu``, which ``chip_smoke.py`` holds this against)."""
     n1 = int(n1)
     return (REC_BYTES * groups * width
-            + itemsize * (2 * (n1 - 1) + 2 * n1) * LANES)
-
-
-def fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
-    """Whether the kernel can run the rank-3 tendency ``f`` (a module that
-    carries ``coords`` and ``shape``) in ``dtype`` on ``device``: its
-    :func:`smem_bytes` at most ``limit`` bytes, by default the opt-in
-    shared memory of one block of that card, which the launcher checks
-    too (:func:`~qgs_tpu_torch.ops._build.max_smem_optin`)."""
-    width = row_groups(f.coords, f.shape[0], groups).width
-    if limit is None:
-        limit = _build.max_smem_optin(device)
-    return smem_bytes(f.shape[0], groups, width, dtype) <= limit
+            + _itemsize(dtype) * (2 * (n1 - 1) + 2 * n1) * LANES)
 
 
 def ring_bytes(groups):
@@ -247,28 +236,15 @@ def streamed_smem_bytes(n1, groups, dtype):
     (``streamed_smem_bytes`` of ``csrc/rk4_streamed.cu``, which
     ``chip_smoke.py`` holds this against).  The records do not count: they
     stay in device memory."""
-    if dtype not in _FNS:
-        raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
-    itemsize = 8 if dtype == torch.float64 else 4
-    return ring_bytes(groups) + itemsize * 2 * int(n1) * LANES
-
-
-def streamed_fits(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
-    """Whether the streamed kernel can run the rank-3 tendency ``f`` in
-    ``dtype`` on ``device``: its :func:`streamed_smem_bytes` at most
-    ``limit`` bytes, by default the opt-in shared memory of one block of
-    that card."""
-    if limit is None:
-        limit = _build.max_smem_optin(device)
-    return streamed_smem_bytes(f.shape[0], groups, dtype) <= limit
+    return ring_bytes(groups) + _itemsize(dtype) * 2 * int(n1) * LANES
 
 
 def pick_kernel(sizes, limit):
-    """The kernel of every launcher's choice, from the shared memory of the
-    resident and the streamed layouts, ``sizes`` (None where the family
-    has no such kernel, or it cannot take the tensor): ``"resident"`` when
-    the first is at most ``limit`` bytes, else ``"streamed"`` when the
-    second is, else ``None``."""
+    """The kernel of a launch plan, from the shared memory of the resident
+    and the streamed layouts, ``sizes`` (None where the family has no such
+    kernel, or it cannot take the tensor): ``"resident"`` when the first
+    is at most ``limit`` bytes, else ``"streamed"`` when the second is,
+    else ``None``."""
     if sizes[0] is not None and sizes[0] <= limit:
         return "resident"
     if sizes[1] is not None and sizes[1] <= limit:
@@ -276,27 +252,18 @@ def pick_kernel(sizes, limit):
     return None
 
 
-def choose_kernel(f, dtype, device, groups=DEFAULT_GROUPS, limit=None):
-    """Which kernel :func:`fused_rk4` launches for the rank-3 tendency
-    ``f`` in ``dtype`` on ``device``: ``"resident"`` when its layout
-    :func:`fits`, else ``"streamed"`` when :func:`streamed_fits`, else
-    ``None``.  ``limit`` as for :func:`fits`."""
-    if limit is None:
-        limit = _build.max_smem_optin(device)
-    width = row_groups(f.coords, f.shape[0], groups).width
-    return pick_kernel(K1.sizes(f.shape[0], groups, width, dtype), limit)
-
-
-def pack_records(layout, words):
-    """The streamed kernels' records of ``layout`` (a :class:`GroupLayout`
-    of G tables of W records): int32 (G, W', 4), W' the width rounded up
-    to whole :data:`TILE` s, record ``[g, e]`` the 16 bytes ``{jk, ctl,
-    words[g, e, 0], words[g, e, 1]}``, zero past W.  ``words`` (G, W, 2)
-    int32 holds each value's bytes."""
-    G, W = layout.jk.shape
-    out = np.zeros((G, -(-W // TILE) * TILE, 4), np.int32)
-    out[:, :W, 0] = layout.jk
-    out[:, :W, 1] = layout.ctl
+def pack_records(index, ctl, words, tile=1):
+    """The kernels' 16-byte records of G tables of W entries: int32 (G,
+    W', 4), W' the width rounded up to whole ``tile`` s (the streamed
+    kernels' rings read whole :data:`TILE` s; 1 for the resident ones),
+    record ``[g, e]`` the words ``{index[g, e], ctl[g, e], words[g, e, 0],
+    words[g, e, 1]}``, zero past W.  ``index`` (G, W) holds each entry's
+    packed indices, ``ctl`` its row and flag, ``words`` (G, W, 2) int32
+    its value's bytes."""
+    G, W = index.shape
+    out = np.zeros((G, -(-W // tile) * tile, 4), np.int32)
+    out[:, :W, 0] = index
+    out[:, :W, 1] = ctl
     out[:, :W, 2:] = words
     return out
 
@@ -314,18 +281,27 @@ def value_words(vals, dtype):
     raise TypeError(f"dtype {dtype}: the kernel takes float32 or float64")
 
 
+def resident_records(layout, dtype):
+    """The resident K1's records of ``layout`` (a :class:`GroupLayout`),
+    each value in ``dtype`` (:func:`value_words`), at the layout's own
+    width."""
+    return pack_records(layout.jk, layout.ctl,
+                        value_words(layout.vals, dtype))
+
+
 def streamed_records(layout, dtype):
-    """:func:`pack_records` of ``layout`` with each value in ``dtype``
-    (:func:`value_words`)."""
-    return pack_records(layout, value_words(layout.vals, dtype))
+    """The streamed K1's records of ``layout``: :func:`resident_records`
+    padded with zero records to whole ring tiles."""
+    return pack_records(layout.jk, layout.ctl,
+                        value_words(layout.vals, dtype), TILE)
 
 
 def streamed_tendency(recs, lengths, x):
-    """The tendency of the (B, n) state ``x`` through the streamed
-    kernel's records ``recs`` (:func:`streamed_records` in ``x``'s dtype)
-    and the groups' ``lengths``, in plain PyTorch: each value decoded from
-    its words as the kernel decodes it, the entries summed in the kernel's
-    order (:func:`group_tendency`)."""
+    """The tendency of the (B, n) state ``x`` through K1's records ``recs``
+    (:func:`resident_records` or :func:`streamed_records` in ``x``'s
+    dtype) and the groups' ``lengths``, in plain PyTorch: each value
+    decoded from its words as the kernels decode it, the entries summed in
+    the kernels' order (:func:`group_tendency`)."""
     recs = np.ascontiguousarray(recs, np.int32)
     if x.dtype == torch.float64:
         vals = np.ascontiguousarray(recs[..., 2:]).view("<f8")[..., 0]
@@ -394,9 +370,8 @@ def fused_rk4_reference(f, y, dts, write_every=0):
 
 
 def check_steps(y, dts, write_every):
-    """The checks the fused kernels' wrappers share: ``dts`` and
-    ``write_every`` as the kernels read them, and the kernels' int32
-    counts."""
+    """The checks of ``dts`` and ``write_every`` as the kernels read them,
+    and of the kernels' int32 counts."""
     if (dts.dtype != torch.float64 or dts.dim() != 1
             or dts.device != y.device or not dts.is_contiguous()):
         raise ValueError("dts must be a contiguous 1-D float64 tensor on the "
@@ -420,29 +395,11 @@ def raise_on_error(err, kernel):
                            f"({_build.error_string(err)})")
 
 
-def _check(f, y, dts, write_every):
-    if not hasattr(f, "coords"):
-        raise TypeError("fused_rk4 needs a Tendency module (it carries the "
-                        "rank-3 tensor the kernel runs)")
-    if y.dtype not in _FNS:
-        raise TypeError(f"state dtype {y.dtype}: the kernel takes float32 or "
-                        "float64")
-    if y.dtype != f.dtype:
-        raise TypeError(f"state dtype {y.dtype} differs from the tendency's "
-                        f"{f.dtype}")
-    if y.dim() != 2 or y.shape[1] != f.shape[0] - 1:
-        raise ValueError(f"state shape {tuple(y.shape)}: expected (B, "
-                         f"{f.shape[0] - 1})")
-    if not y.is_contiguous():
-        raise ValueError("state must be contiguous")
-    check_steps(y, dts, write_every)
-
-
 def no_kernel_fits(name, sizes, n1, limit, device):
-    """The error of a launcher whose tendency fits neither kernel;
-    ``sizes`` the resident and streamed layouts' bytes (the second None
-    for a family without a streamed kernel), ``limit`` the shared memory a
-    block on ``device``."""
+    """The error of a launch whose tendency fits none of its family's
+    kernels; ``sizes`` the resident and streamed layouts' bytes (the
+    second None for a family without a streamed kernel), ``limit`` the
+    shared memory a block on ``device``."""
     if sizes[1] is None:
         return RuntimeError(
             f"{name} cannot launch: its layout ({sizes[0]} B) of a tensor "
@@ -454,20 +411,125 @@ def no_kernel_fits(name, sizes, n1, limit, device):
         f"the {limit} B of shared memory a block on {device}")
 
 
+def run_records(kernel, fn, tables, n1, y, dts, write_every, *scratch):
+    """One launch of the C export ``fn`` of ``kernel`` (the resident K1's
+    or K5's; the streamed K1's, with its ``scratch``) over a launch plan's
+    tables ``(lengths, recs)`` of a tensor of first dimension ``n1``, the
+    state and steps already checked.  Returns ``(y_final, records,
+    launched)``, ``launched`` 1, or 0 where the batch or the steps are
+    empty and nothing is launched."""
+    out, records = start_run(y, dts.numel(), write_every)
+    if y.shape[0] == 0 or dts.numel() == 0:
+        return out, records, 0
+    lengths, recs = tables
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    with torch.cuda.device(y.device):
+        err = getattr(lib, fn)(
+            recs.data_ptr(), lengths.data_ptr(), recs.shape[0], recs.shape[1],
+            n1, out.data_ptr(), y.shape[0], dts.data_ptr(), dts.numel(),
+            write_every, records.data_ptr(),
+            *(s.data_ptr() for s in scratch), stream)
+    raise_on_error(err, kernel)
+    return out, records, 1
+
+
+def _dtype_names(dtypes):
+    return " or ".join(str(d).replace("torch.", "") for d in dtypes)
+
+
 class KernelFamily(NamedTuple):
-    """What a launch plan needs of a family of fused kernels (the resident
-    and the streamed one of K1, or of the double-float K2, or the rank-5
-    K5 alone): its ``name`` (the resident launcher's, a part of the plan's
-    key), ``sizes(n1, groups, width, dtype)`` the resident and the
-    streamed layouts' shared memory (:func:`pick_kernel`), ``tables(layout,
-    kernel, dtype)`` a kernel's tables of its layout, ``(array, dtype)``
-    pairs in the launcher's order (dtype None uploads the array in its
-    own), and ``layout(coords, data, shape, groups, rows)`` that layout
-    (:func:`group_layout` by default)."""
+    """A family of fused RK4 kernels (K1's resident and streamed kernels,
+    K2's, or K5's resident one): everything a launch needs.  ``name`` is
+    the resident kernel's (a part of a launch plan's key); the family runs
+    a ``module`` (its tensor of ``rank``) on states of ``dtypes`` (each part
+    of a (hi, lo) pair where ``pair``) whose first dimension is at most
+    ``max_n1``, with ``groups`` row groups (warps) a block.
+    ``sizes(n1, groups, width, dtype)`` gives the resident and the streamed
+    layouts' shared memory (None where there is no streamed kernel),
+    ``layout(coords, data, shape, groups, rows)`` the family's layout,
+    ``tables(layout, kernel, dtype)`` a kernel's tables of it (``(array,
+    dtype)`` pairs in the launcher's order, dtype None for the array's
+    own), ``run(kernel, tables, n1, y, dts, write_every)`` one launch on a
+    checked CUDA state, counted in the family module's counters, and
+    ``reference(f, y, dts, write_every)`` the plain version that a CPU
+    state runs (None: a CPU state raises)."""
     name: str
+    module: type
+    rank: int
+    dtypes: tuple
+    pair: bool
+    max_n1: int
+    groups: int
     sizes: Callable
     tables: Callable
+    run: Callable
+    reference: Optional[Callable]
     layout: Callable = group_layout
+
+    def takes(self, f, y):
+        """Whether the family's kernels run the tendency module ``f`` on
+        the state ``y`` (a (hi, lo) pair for a double-float family), by the
+        module's type, its tensor's rank and the state's dtypes; nothing of
+        the card is read."""
+        parts = y if isinstance(y, tuple) else (y,)
+        return (isinstance(f, self.module) and len(f.shape) == self.rank
+                and len(parts) == 1 + self.pair
+                and all(p.dtype in self.dtypes for p in parts))
+
+    def check(self, f, y, dts, write_every):
+        """The checks of a launch: a CUDA state that the family takes, of
+        the tendency's width, contiguous, every part on one card, and the
+        steps the kernels read (:func:`check_steps`)."""
+        parts = y if isinstance(y, tuple) else (y,)
+        y0 = parts[0]
+        if y0.device.type != "cuda":
+            where = "CUDA or CPU" if self.reference else "CUDA"
+            raise ValueError(f"{self.name} runs on {where}, not {y0.device}")
+        if not self.takes(f, y):
+            raise TypeError(
+                f"{self.name} takes a rank-{self.rank} "
+                f"{self.module.__name__} module and a state "
+                f"{'pair ' if self.pair else ''}of "
+                f"{_dtype_names(self.dtypes)}: got {type(f).__name__} of "
+                f"shape {getattr(f, 'shape', None)} and "
+                f"{_dtype_names(p.dtype for p in parts)}")
+        n1 = f.shape[0]
+        if n1 > self.max_n1:
+            raise ValueError(f"n1 = {n1} exceeds the kernel's indices (n1 <= "
+                             f"{self.max_n1})")
+        if not self.pair and y0.dtype != f.dtype:
+            raise TypeError(f"state dtype {y0.dtype} differs from the "
+                            f"tendency's {f.dtype}")
+        for p in parts:
+            if p.dim() != 2 or tuple(p.shape) != (y0.shape[0], n1 - 1):
+                raise ValueError(f"state shape {tuple(p.shape)}: expected "
+                                 f"(B, {n1 - 1}), the same for hi and lo")
+            if not p.is_contiguous() or p.device != y0.device:
+                raise ValueError("state must be contiguous, a pair's parts "
+                                 "on one device")
+        check_steps(y0, dts, write_every)
+
+    def launch(self, f, y, dts, write_every=0, kernel=None):
+        """Advance the (B, n) state ``y`` (a (hi, lo) pair for a
+        double-float family) by ``len(dts)`` RK4 steps of the tendency
+        module ``f`` in one launch; ``dts`` (n_steps,) float64 on the
+        state's device.  ``kernel`` (``"resident"`` or ``"streamed"``)
+        forces a kernel, as the checks that hold the two bit for bit do;
+        by default the launch plan chooses (:func:`plan_tables`).
+
+        Returns ``(y_final, records)`` (pairs for a pair), records
+        (n_steps // write_every, B, n) holding the state after every
+        ``write_every`` steps.  ``y`` is not modified.  A CPU state runs
+        the family's plain ``reference`` (or raises where it has none); a
+        CUDA state launches a kernel or raises (``RuntimeError`` for a
+        tendency that fits none)."""
+        y0 = y[0] if isinstance(y, tuple) else y
+        if y0.device.type == "cpu" and self.reference is not None:
+            return self.reference(f, y, dts, write_every)
+        self.check(f, y, dts, write_every)
+        kernel, tables = plan_tables(f, self, kernel, y0.dtype, y0.device)
+        return self.run(kernel, tables, f.shape[0], y, dts, write_every)
 
 
 def _k1_sizes(n1, groups, width, dtype):
@@ -476,13 +538,31 @@ def _k1_sizes(n1, groups, width, dtype):
 
 
 def _k1_tables(layout, kernel, dtype):
+    records = streamed_records if kernel == "streamed" else resident_records
+    return (layout.lengths, None), (records(layout, dtype), None)
+
+
+def _k1_run(kernel, tables, n1, y, dts, write_every):
+    global launches, launches_streamed
     if kernel == "streamed":
-        return (layout.lengths, None), (streamed_records(layout, dtype), None)
-    return ((layout.lengths, None), (layout.jk, None), (layout.ctl, None),
-            (layout.vals, dtype))
+        scratch = y.new_empty((-(-y.shape[0] // LANES), 2, n1 - 1, LANES))
+        out, records, launched = run_records(
+            "rk4_streamed", _STREAMED_FNS[y.dtype], tables, n1, y, dts,
+            write_every, scratch)
+        launches_streamed += launched
+    else:
+        out, records, launched = run_records(
+            "rk4_fused", _FNS[y.dtype], tables, n1, y, dts, write_every)
+        launches += launched
+    return out, records
 
 
-K1 = KernelFamily("rk4_fused", _k1_sizes, _k1_tables)
+# K1.  G = 8 for both kernels: on the H100 it ties G = 4 at B = 16384 in
+# float64 and is the fastest of 1, 2, 4 and 8 at B = 4096 and 16384
+# otherwise (PERF.md, Findings).  An index word holds j | k << 16.
+K1 = KernelFamily("rk4_fused", Tendency, 3, (torch.float32, torch.float64),
+                  False, 1 << 15, 8, _k1_sizes, _k1_tables, _k1_run,
+                  fused_rk4_reference)
 
 
 class _Plans(dict):
@@ -503,28 +583,31 @@ class LaunchPlan:
     ``groups`` and shared-memory ``limit`` (:func:`launch_plan`): the
     arrays it was built from (``coords``, ``data``, ``shape``), its rows'
     :class:`RowGroups` (``rows``), the resident and the streamed layouts'
-    bytes (``sizes``) and the kernel the route takes (``kernel``:
-    ``"resident"``, ``"streamed"`` or ``None``, :func:`pick_kernel`);
-    from the first launch of a kernel on (:func:`plan_tables`), the
-    family's layout (``layout``) and that kernel's device tables
-    (``tables``, kernel -> tuple of tensors in the launcher's order)."""
+    bytes (``sizes``, both None past the family's ``max_n1``) and the
+    kernel the route takes (``kernel``: ``"resident"``, ``"streamed"`` or
+    ``None``, :func:`pick_kernel`); from the first launch of a kernel on
+    (:func:`plan_tables`), the family's layout (``layout``) and that
+    kernel's device tables (``tables``, kernel -> tuple of tensors in the
+    launcher's order)."""
 
     def __init__(self, f, family, dtype, device, groups, limit):
         self.coords, self.data, self.shape = f.coords, f.data, f.shape
-        self.device, self.limit = device, limit
+        self.device, self.groups, self.limit = device, groups, limit
         self.rows = row_groups(f.coords, f.shape[0], groups)
-        self.sizes = family.sizes(f.shape[0], groups, self.rows.width, dtype)
+        self.sizes = (family.sizes(f.shape[0], groups, self.rows.width, dtype)
+                      if f.shape[0] <= family.max_n1 else (None, None))
         self.kernel = pick_kernel(self.sizes, limit)
         self.layout = None
         self.tables = {}
 
 
-def launch_plan(f, family, dtype, device, groups=DEFAULT_GROUPS, limit=None):
+def launch_plan(f, family, dtype, device, groups=None, limit=None):
     """The launch plan (a :class:`LaunchPlan`) of the tendency ``f`` for
     the kernel ``family`` (:data:`K1`, or
     :data:`~qgs_tpu_torch.ops.fused_df_rk4.DF`, of a rank-3 tendency;
     :data:`~qgs_tpu_torch.ops.fused_rk4_quartic.K5` of a rank-5 one) in
-    ``dtype`` on ``device``, with ``groups`` row groups and ``limit``
+    ``dtype`` on ``device``, with ``groups`` row groups (by default the
+    family's G; another G serves the checks of the layout) and ``limit``
     bytes of shared memory a block (by default the card's,
     :func:`~qgs_tpu_torch.ops._build.max_smem_optin`).
 
@@ -536,6 +619,8 @@ def launch_plan(f, family, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     the plain contraction's layout, built when the module is, does not see
     it either."""
     device = torch.device(device)
+    if groups is None:
+        groups = family.groups
     if limit is None:
         limit = _build.max_smem_optin(device)
     plans = getattr(f, "launch_plans", None)
@@ -550,16 +635,15 @@ def launch_plan(f, family, dtype, device, groups=DEFAULT_GROUPS, limit=None):
     return plan
 
 
-def plan_tables(f, family, kernel, dtype, device, groups=DEFAULT_GROUPS,
-                limit=None):
-    """``(kernel, tables)`` of a launch of the tendency ``f`` (both
-    launchers' one path to their tables): ``kernel`` where it is forced,
-    else its plan's choice (:func:`launch_plan`, looked up under the span
+def plan_tables(f, family, kernel, dtype, device, groups=None, limit=None):
+    """``(kernel, tables)`` of a launch of the tendency ``f`` (every
+    launch's one path to its tables): ``kernel`` where it is forced, else
+    its plan's choice (:func:`launch_plan`, looked up under the span
     ``qgs.layout``), and that kernel's device tables.  The plan's first
-    launch of a kernel builds them (its :func:`group_layout` once a plan,
-    under ``qgs.layout``) and uploads them (under ``qgs.layout_in``); every
-    later one takes the stored tables and counts in :data:`plan_hits`.
-    Raises where the plan's choice is no kernel."""
+    launch of a kernel builds them (the family's layout once a plan, under
+    ``qgs.layout``) and uploads them (under ``qgs.layout_in``); every later
+    one takes the stored tables and counts in :data:`plan_hits`.  Raises
+    where the plan's choice is no kernel."""
     global plan_hits
     with span("qgs.layout"):
         plan = launch_plan(f, family, dtype, device, groups, limit)
@@ -572,7 +656,7 @@ def plan_tables(f, family, kernel, dtype, device, groups=DEFAULT_GROUPS,
             return kernel, plan.tables[kernel]
         if plan.layout is None:
             plan.layout = family.layout(plan.coords, plan.data, plan.shape,
-                                        groups, plan.rows)
+                                        plan.groups, plan.rows)
         host = family.tables(plan.layout, kernel, dtype)
     with span("qgs.layout_in"):
         tables = plan.tables[kernel] = tuple(
@@ -580,64 +664,17 @@ def plan_tables(f, family, kernel, dtype, device, groups=DEFAULT_GROUPS,
     return kernel, tables
 
 
-def fused_rk4(f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
+def fused_rk4(f, y, dts, write_every=0):
     """Advance the (B, n) state ``y`` by ``len(dts)`` RK4 steps of the
-    tendency module ``f`` (a :class:`~qgs_tpu_torch.ops.contraction.Tendency`)
-    in one kernel launch; ``dts`` (n_steps,) float64 on ``y``'s device.
-    ``groups`` (one of :data:`GROUPS`) sets the kernel's row groups a block.
-    :func:`choose_kernel` decides by size which kernel runs.
+    rank-3 tendency module ``f`` (a
+    :class:`~qgs_tpu_torch.ops.contraction.Tendency`) in one launch of K1
+    (:meth:`KernelFamily.launch` of :data:`K1`); ``dts`` (n_steps,)
+    float64 on ``y``'s device.  The tendency's launch plan decides which
+    kernel runs.
 
     Returns ``(y_final, records)``, records (n_steps // write_every, B, n)
     holding the state after every ``write_every`` steps.  ``y`` is not
     modified.  A CPU state runs :func:`fused_rk4_reference`; a CUDA state
     launches a kernel or raises (``RuntimeError`` for a tendency that fits
     neither kernel)."""
-    return _launch(None, f, y, dts, write_every, groups)
-
-
-def _launch(kernel, f, y, dts, write_every=0, groups=DEFAULT_GROUPS):
-    """:func:`fused_rk4` with ``kernel``, ``"resident"`` or ``"streamed"``,
-    forced (the checks that hold the two kernels bit for bit call this), or
-    the launch plan's choice where it is None (:func:`plan_tables`).  A
-    forced kernel whose layout does not fit raises the launcher's
-    ``RuntimeError``."""
-    global launches, launches_streamed
-    if groups not in GROUPS:
-        raise ValueError(f"groups = {groups}: the kernel takes one of "
-                         f"{GROUPS}")
-    if y.device.type == "cpu":
-        return fused_rk4_reference(f, y, dts, write_every)
-    if y.device.type != "cuda":
-        raise ValueError(f"fused_rk4 runs on CUDA or CPU, not {y.device}")
-    _check(f, y, dts, write_every)
-    B = y.shape[0]
-    n_steps = dts.numel()
-    out, records = start_run(y, n_steps, write_every)
-    if B == 0 or n_steps == 0:
-        return out, records
-    n1 = f.shape[0]
-    kernel, tables = plan_tables(f, K1, kernel, y.dtype, y.device, groups)
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    if kernel == "streamed":
-        lengths, recs = tables
-        scratch = y.new_empty((-(-B // LANES), 2, n1 - 1, LANES))
-        with torch.cuda.device(y.device):
-            err = getattr(lib, _STREAMED_FNS[y.dtype])(
-                recs.data_ptr(), lengths.data_ptr(), recs.shape[0],
-                recs.shape[1], n1, out.data_ptr(), B, dts.data_ptr(),
-                n_steps, write_every, records.data_ptr(), scratch.data_ptr(),
-                stream)
-        raise_on_error(err, "rk4_streamed")
-        launches_streamed += 1
-        return out, records
-    lengths, jk, ctl, vals = tables
-    with torch.cuda.device(y.device):
-        err = getattr(lib, _FNS[y.dtype])(
-            jk.data_ptr(), ctl.data_ptr(), vals.data_ptr(),
-            lengths.data_ptr(), jk.shape[0], jk.shape[1], n1,
-            out.data_ptr(), B, dts.data_ptr(), n_steps, write_every,
-            records.data_ptr(), stream)
-    raise_on_error(err, "rk4_fused")
-    launches += 1
-    return out, records
+    return K1.launch(f, y, dts, write_every)

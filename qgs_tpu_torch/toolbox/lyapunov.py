@@ -38,8 +38,6 @@ from qgs_tpu_torch.integrators.rk import (
     _is_rk4, as_state, fused_route, make_rk_step, make_tgls_step,
     merge_tableau, rk4_tableau,
 )
-from qgs_tpu_torch.ops import fused_df_rk4 as _fused_df
-from qgs_tpu_torch.ops import fused_rk4 as _fused
 from qgs_tpu_torch.ops.contraction import make_bucketed_tangent
 from qgs_tpu_torch.ops.twofloat import (
     DfTangent, DfTendency, _check_explicit_tableau, df_from_f64, df_to_f64,
@@ -323,24 +321,25 @@ def forward_boundary_states(f, y, n_windows, n_sub, mdt, tableau=None):
     integration by ``n_windows * n_sub`` steps of ``mdt``: a (n_windows + 1,
     B, n) tensor, a pair of them for a double-float state ``y``.
 
-    On a CUDA state, classical RK4 of a rank-3
-    :class:`~qgs_tpu_torch.ops.contraction.Tendency` is one launch of the
-    fused RK4 kernel and of a rank-3
-    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency` one launch of the fused
-    double-float kernel, a record every ``n_sub`` steps
-    (:func:`~qgs_tpu_torch.integrators.rk.fused_route`).  Every other case
-    is the plain step loop (the double-float RK4 step with ``mdt`` baked
-    in, as the JAX package's forward pass)."""
+    On a CUDA state, classical RK4 of a tendency that a fused kernel family
+    takes is one launch of that family
+    (:func:`~qgs_tpu_torch.integrators.rk.fused_route`: K1 for a rank-3
+    :class:`~qgs_tpu_torch.ops.contraction.Tendency`, K2 for a rank-3
+    :class:`~qgs_tpu_torch.ops.twofloat.DfTendency`, K5 for a rank-5
+    ``Tendency``), a record every ``n_sub`` steps.  Every other case is the
+    plain step loop (the double-float RK4 step with ``mdt`` baked in, as the
+    JAX package's forward pass)."""
     df_mode = isinstance(y, tuple)
     rk4 = tableau is None or _is_rk4(*tableau)
     y0 = y[0] if df_mode else y
-    if fused_route(f, y, tableau if tableau is not None else rk4_tableau()):
+    family = fused_route(f, y, tableau if tableau is not None
+                         else rk4_tableau())
+    if family is not None:
         dts = torch.full((n_windows * n_sub,), float(mdt),
                          dtype=torch.float64, device=y0.device)
+        _, recs = family.launch(f, y, dts, n_sub)
         if df_mode:
-            _, recs = _fused_df.fused_df_rk4(f, *y, dts, n_sub)
             return tuple(torch.cat([p[None], r]) for p, r in zip(y, recs))
-        _, recs = _fused.fused_rk4(f, y, dts, n_sub)
         return torch.cat([y[None], recs])
 
     if df_mode:

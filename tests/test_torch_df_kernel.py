@@ -1,7 +1,8 @@
 """The fused double-float RK4 kernel's wrapper and layout: the tendency
 through the kernel's row-group layout in the kernel's order
 (``df_group_tendency``) against ``DfTendency`` and eager JAX double-float,
-for every choice of G; a double-float product by ``xx[0] = (1, 0)``
+for every choice of G the layout is checked at; a double-float product by
+``xx[0] = (1, 0)``
 returns its other factor bit for bit; on the CPU the wrapper runs the
 plain version and launches nothing; on a CUDA card (marked ``cuda``) the
 kernel is held against its plain version."""
@@ -23,6 +24,7 @@ from tests.test_torch_twofloat import _maooam_4x4_params
 from tests.test_trajectory import _maooam_params
 
 TOL = dict(rtol=1e-9, atol=1e-11)
+LAYOUT_GROUPS = (1, 2, 4, 8)     # the G the layout is checked at
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +59,7 @@ def config(request):
     return T, df_from_f64(torch.as_tensor(x)), ref[:, 1:]
 
 
-@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
+@pytest.mark.parametrize("groups", LAYOUT_GROUPS)
 def test_df_group_tendency_matches_df_tendency_and_eager_jax(config, groups):
     """Only the summation order of a row differs: atol 1e-14, the tolerance
     of ``DfTendency`` against eager JAX."""
@@ -105,20 +107,11 @@ def test_df_group_tendency_writes_rows_without_entries():
     data = np.array([1., 2., 3., 4., 5.])
     x = df_from_f64(torch.tensor([[0.5, -2., 3.]], dtype=torch.float64))
     ref = DfTendency(coords, data, (4, 4, 4), device="cpu")(*x)
-    for groups in fused_rk4.GROUPS:
+    for groups in LAYOUT_GROUPS:
         lay = fused_rk4.group_layout(coords, data, (4, 4, 4), groups)
         out = fused_df_rk4.df_group_tendency(lay, *x)
         assert torch.equal(df_to_f64(out), df_to_f64(ref))
         assert out[0][0, 1] == out[1][0, 1] == 0
-
-
-def test_wrapper_takes_only_the_kernels_groups(maooam):
-    pars, tensor = maooam
-    y = df_from_f64(torch.zeros((2, pars.ndim), dtype=torch.float64))
-    dts = torch.full((3,), 0.1, dtype=torch.float64)
-    for groups in (0, 3, 16):
-        with pytest.raises(ValueError, match="groups"):
-            fused_df_rk4.fused_df_rk4(_port(tensor), *y, dts, groups=groups)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing(maooam):
@@ -169,12 +162,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 31, 1000])
-@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
-def test_kernel_matches_plain_version_on_card(maooam, cuda_device, groups,
-                                              B):
-    """Every G, full and ragged blocks (B = 1000 has a ragged last block),
-    the reference's grid with a shorter last step (301 steps), a record
-    every 7 steps."""
+def test_kernel_matches_plain_version_on_card(maooam, cuda_device, B):
+    """Full and ragged blocks (B = 1000 has a ragged last block), the
+    reference's grid with a shorter last step (301 steps), a record every 7
+    steps."""
     pars, tensor = maooam
     f = _port(tensor, cuda_device)
     dts = torch.as_tensor(np.diff(time_grid(0., 30.05, 0.1)),
@@ -184,7 +175,7 @@ def test_kernel_matches_plain_version_on_card(maooam, cuda_device, groups,
         np.random.default_rng(B).random((B, pars.ndim)) * 0.01,
         device=cuda_device))
     before = fused_df_rk4.launches
-    out, rec = fused_df_rk4.fused_df_rk4(f, *y, dts, 7, groups=groups)
+    out, rec = fused_df_rk4.fused_df_rk4(f, *y, dts, 7)
     torch.cuda.synchronize()
     assert fused_df_rk4.launches == before + 1
     out_ref, rec_ref = fused_df_rk4.fused_df_rk4_reference(f, *y, dts, 7)

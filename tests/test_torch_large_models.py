@@ -2,9 +2,10 @@
 
 The resident fused RK4 kernels (K1 ``csrc/rk4_fused.cu``, K2
 ``csrc/rk4_df_fused.cu``) hold a tensor's whole layout in one block's
-shared memory.  The launchers decide before any launch whether it fits
-(``fits`` / ``df_fits``, twins of the launchers' ``smem_bytes`` /
-``df_smem_bytes``); a model that does not fit runs in the streamed
+shared memory.  A tendency's launch plan decides before any launch whether
+it fits (``launch_plan(...).kernel``, from the Python twins of the
+launchers' ``smem_bytes`` / ``df_smem_bytes``); a model that does not fit
+runs in the streamed
 kernels (``csrc/rk4_streamed.cu``, ``csrc/rk4_df_streamed.cu``, which keep
 the records in device memory; ``tests/test_torch_streamed.py``), and only
 a model past their limit takes the plain step loop.
@@ -139,18 +140,25 @@ def test_twins_give_the_launchers_bytes(case):
             == k1 - 4 * (4 * case[1] + 2) * 32)
 
 
+def resident(f, family, dtype, limit=H100_OPTIN):
+    """Whether ``f``'s launch plan of ``family`` takes the resident
+    kernel."""
+    return fused_rk4.launch_plan(f, family, dtype, "cuda",
+                                 limit=limit).kernel == "resident"
+
+
 @pytest.mark.parametrize("case", list(TABLE), ids=lambda c: f"{c[0]}-{c[1]}")
 def test_fit_decisions(case):
     f = port_tendency(*case)
-    got = (fused_rk4.fits(f, torch.float64, "cuda", limit=H100_OPTIN),
-           fused_rk4.fits(f, torch.float32, "cuda", limit=H100_OPTIN),
-           fused_df_rk4.df_fits(f, torch.float32, "cuda", limit=H100_OPTIN))
+    got = (resident(f, fused_rk4.K1, torch.float64),
+           resident(f, fused_rk4.K1, torch.float32),
+           resident(f, fused_df_rk4.DF, torch.float32))
     assert got == FITS[case[1]]
-    # the bound is inclusive, and the default is the kernels' G
+    # the bound is inclusive, and the plan's G is the kernels' 8
     need = fused_rk4.smem_bytes(f.shape[0], 8, TABLE[case][1], torch.float64)
-    assert fused_rk4.fits(f, torch.float64, "cuda", limit=need)
-    assert not fused_rk4.fits(f, torch.float64, "cuda", limit=need - 1)
-    assert fused_rk4.DEFAULT_GROUPS == 8
+    assert resident(f, fused_rk4.K1, torch.float64, need)
+    assert not resident(f, fused_rk4.K1, torch.float64, need - 1)
+    assert fused_rk4.K1.groups == fused_df_rk4.DF.groups == 8
 
 
 def _argmin_assignment(padded, groups):
@@ -165,7 +173,7 @@ def _argmin_assignment(padded, groups):
     return out, load
 
 
-@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
 @pytest.mark.parametrize("ndim", [36, 104])
 def test_row_groups_is_group_layouts_assignment(ndim, groups):
     f = port_tendency("sweep", ndim)
@@ -183,9 +191,9 @@ def test_row_groups_is_group_layouts_assignment(ndim, groups):
 def test_twins_refuse_other_dtypes_and_devices():
     f = port_tendency("sweep", 36)
     with pytest.raises(TypeError, match="float32 or float64"):
-        fused_rk4.fits(f, torch.float16, "cuda", limit=H100_OPTIN)
+        resident(f, fused_rk4.K1, torch.float16)
     with pytest.raises(TypeError, match="float32"):
-        fused_df_rk4.df_fits(f, torch.float64, "cuda", limit=H100_OPTIN)
+        resident(f, fused_df_rk4.DF, torch.float64)
     with pytest.raises(ValueError, match="CUDA cards"):
         _build.max_smem_optin("cpu")
 
@@ -202,29 +210,33 @@ class _OnCard:
 @pytest.mark.parametrize("ndim", [36, 104, 228])
 def test_route_follows_the_fit(ndim, monkeypatch):
     """``fused_route`` on a card whose opt-in limit is the H100's (a
-    stand-in state and limit: there is no card here): a kernel for float64
-    and twofloat at every width, the resident K1/K2 where their layout
-    fits and the streamed ones past it, and only for classical RK4."""
+    stand-in state and limit: there is no card here): K1's family for
+    float64 and K2's for twofloat at every width, their launch plans taking
+    the resident kernel where its layout fits and the streamed one past it,
+    and only for classical RK4."""
     monkeypatch.setattr(_build, "max_smem_optin", lambda device: H100_OPTIN)
     f = port_tendency("sweep", ndim)
     fdf = DfTendency(f.coords, f.data, f.shape, device="cpu")
     pair = (_OnCard(torch.float32), _OnCard(torch.float32))
     k1, _, k2 = FITS[ndim]
-    assert fused_route(f, _OnCard(torch.float64), rk4_tableau())
-    assert fused_route(fdf, pair, rk4_tableau())
-    assert fused_rk4.choose_kernel(f, torch.float64, "cuda") == (
+    assert fused_route(f, _OnCard(torch.float64), rk4_tableau()) is \
+        fused_rk4.K1
+    assert fused_route(fdf, pair, rk4_tableau()) is fused_df_rk4.DF
+    assert fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64,
+                                 "cuda").kernel == (
         "resident" if k1 else "streamed")
-    assert fused_df_rk4.df_choose_kernel(fdf, torch.float32, "cuda") == (
+    assert fused_rk4.launch_plan(fdf, fused_df_rk4.DF, torch.float32,
+                                 "cuda").kernel == (
         "resident" if k2 else "streamed")
-    assert not fused_route(f, _OnCard(torch.float64), rk2_tableau())
+    assert fused_route(f, _OnCard(torch.float64), rk2_tableau()) is None
 
 
 def test_cpu_states_take_the_plain_loop():
     f = port_tendency("sweep", 36)
     y = torch.zeros((2, 36), dtype=torch.float64)
-    assert not fused_route(f, y, rk4_tableau())
+    assert fused_route(f, y, rk4_tableau()) is None
     fdf = DfTendency(f.coords, f.data, f.shape, device="cpu")
-    assert not fused_route(fdf, df_from_f64(y), rk4_tableau())
+    assert fused_route(fdf, df_from_f64(y), rk4_tableau()) is None
 
 
 _jax_runs = {}
@@ -306,19 +318,20 @@ def test_direct_launches_that_do_not_fit_raise(cuda_device):
     y = df_from_f64(torch.zeros((32, 104), dtype=torch.float64,
                                 device=cuda_device))
     dts = torch.full((4,), 0.1, dtype=torch.float64, device=cuda_device)
-    assert not fused_df_rk4.df_fits(fdf, torch.float32, cuda_device)
+    assert not resident(fdf, fused_df_rk4.DF, torch.float32, None)
     with pytest.raises(RuntimeError, match="rk4_df_fused launch failed"):
-        fused_df_rk4._launch("resident", fdf, *y, dts)
+        fused_df_rk4.DF.launch(fdf, y, dts, kernel="resident")
     f228, _ = create_tendencies(sweep(228)(QgParams), device=cuda_device)
     y = torch.zeros((32, 228), dtype=torch.float64, device=cuda_device)
-    assert not fused_rk4.fits(f228.batched, torch.float64, cuda_device)
+    assert not resident(f228.batched, fused_rk4.K1, torch.float64, None)
     with pytest.raises(RuntimeError, match="rk4_fused launch failed"):
-        fused_rk4._launch("resident", f228.batched, y, dts)
+        fused_rk4.K1.launch(f228.batched, y, dts, kernel="resident")
     big = synthetic(600, device=cuda_device)
     big_df = DfTendency(big.coords, big.data, big.shape, device=cuda_device)
     y = torch.zeros((32, 599), dtype=torch.float64, device=cuda_device)
-    assert not fused_rk4.streamed_fits(big, torch.float64, cuda_device)
-    assert not fused_route(big, y, rk4_tableau())
+    assert fused_rk4.launch_plan(big, fused_rk4.K1, torch.float64,
+                                 cuda_device).kernel is None
+    assert fused_route(big, y, rk4_tableau()) is None
     with pytest.raises(RuntimeError, match="neither the resident"):
         fused_rk4.fused_rk4(big, y, dts)
     with pytest.raises(RuntimeError, match="neither the resident"):

@@ -175,9 +175,9 @@ def test_group_layout_counts_its_builds():
     ``layout_builds`` by exactly 1; ``row_groups`` alone builds none."""
     f = maooam36()
     before = fused_rk4.layout_builds
-    fused_rk4.row_groups(f.coords, f.shape[0], fused_rk4.DEFAULT_GROUPS)
+    fused_rk4.row_groups(f.coords, f.shape[0], fused_rk4.K1.groups)
     assert fused_rk4.layout_builds == before
-    fused_rk4.group_layout(f.coords, f.data, f.shape, fused_rk4.DEFAULT_GROUPS)
+    fused_rk4.group_layout(f.coords, f.data, f.shape, fused_rk4.K1.groups)
     assert fused_rk4.layout_builds == before + 1
 
 

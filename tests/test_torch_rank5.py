@@ -34,6 +34,9 @@ from qgs_tpu_torch.integrators.rk import fused_route, infer_ndim
 from qgs_tpu_torch.models.tendencies import create_tendencies
 from qgs_tpu_torch.ops import contraction as con
 from qgs_tpu_torch.ops import twofloat as tf
+from qgs_tpu_torch.ops.fused_df_rk4 import DF
+from qgs_tpu_torch.ops.fused_rk4 import K1
+from qgs_tpu_torch.ops.fused_rk4_quartic import K5
 from qgs_tpu_torch.toolbox import lyapunov as pl
 
 from tests.test_torch_host import both_params, dynamic_t, maooam, t4
@@ -359,22 +362,22 @@ def test_rank5_models_route_to_the_step_loop(system, monkeypatch):
     T = s["qgt_p"].tensor
     pair = (_OnCard(torch.float32), _OnCard(torch.float32))
     f5 = s["f_p"].batched
-    assert fused_route(f5, _OnCard(), tab)
+    assert fused_route(f5, _OnCard(), tab) is K5
     f5_32 = con.Tendency(T.coords, T.data, T.shape, torch.float32,
                          device="cpu")
-    assert fused_route(f5_32, _OnCard(torch.float32), tab)
-    assert not fused_route(tf.DfTendency(T.coords, T.data, T.shape,
-                                         device="cpu"), pair, tab)
-    assert not fused_route(f5, _OnCard(), rk2_tableau())
-    assert not fused_route(f5, torch.zeros(1, s["n"], dtype=torch.float64),
-                           tab)
+    assert fused_route(f5_32, _OnCard(torch.float32), tab) is K5
+    assert fused_route(tf.DfTendency(T.coords, T.data, T.shape,
+                                     device="cpu"), pair, tab) is None
+    assert fused_route(f5, _OnCard(), rk2_tableau()) is None
+    assert fused_route(f5, torch.zeros(1, s["n"], dtype=torch.float64),
+                       tab) is None
     _, pars3 = both_params(maooam)
     f3, _, q3 = create_tendencies(pars3, return_qgtensor=True, device="cpu")
-    assert fused_route(f3.batched, _OnCard(), tab)
+    assert fused_route(f3.batched, _OnCard(), tab) is K1
     T3 = q3.tensor
     assert fused_route(tf.DfTendency(T3.coords, T3.data, T3.shape,
-                                     device="cpu"), pair, tab)
-    assert not fused_route(f3.batched, torch.zeros(1, 36), tab)
+                                     device="cpu"), pair, tab) is DF
+    assert fused_route(f3.batched, torch.zeros(1, 36), tab) is None
 
 
 def test_rank5_create_tendencies_defaults_to_the_card():
@@ -448,5 +451,34 @@ def test_k5_integrate_matches_jax(card, system):
     ref = np.asarray(ref)
     assert traj.shape == ref.shape == (64, 38, 11)
     assert traj.device.type == "cuda"
+    np.testing.assert_allclose(traj.cpu().numpy(), ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_forward_lyapunovs_on_card_match_jax(card, system):
+    """``compute_forward_lyapunovs`` of the rank-5 model on the card, its
+    forward pass one K5 launch (the family ``fused_route`` returns), against
+    the JAX package's float64 toolbox on the CPU: the exponents within
+    1e-9, as ``test_backward_lyapunovs_match_jax_t4``'s, and the vectors'
+    trajectory within 1e-12 of the largest |value|."""
+    from qgs_tpu_torch.ops import fused_rk4_quartic as k5
+    s = system
+    args = (0., 0.2, 0.5, 0.1, 0.1, s["x0"])
+    tj = (s["qgt_j"].tensor, s["qgt_j"].jacobian_tensor)
+    tp = (s["qgt_p"].tensor, s["qgt_p"].jacobian_tensor)
+    _, traj_j, ej, _ = jl.compute_forward_lyapunovs(
+        s["f_j"].batched, s["Df_j"].batched, *args, tensors=tj)
+    f, Df = con.make_tendency_fns(*tp, device="cuda")
+    before = k5.launches
+    _, traj, ep, vecs = pl.compute_forward_lyapunovs(f, Df, *args,
+                                                     tensors=tp,
+                                                     device="cuda")
+    torch.cuda.synchronize()
+    assert k5.launches - before == 1
+    assert vecs.shape == (2, 38, 38, 3) and ep.device.type == "cuda"
+    np.testing.assert_allclose(ep.cpu().numpy(), np.asarray(ej), rtol=0,
+                               atol=1e-9)
+    ref = np.asarray(traj_j)
     np.testing.assert_allclose(traj.cpu().numpy(), ref, rtol=0,
                                atol=1e-12 * np.abs(ref).max())

@@ -1,7 +1,8 @@
 """The fused RK4 kernel's layouts and plain version against the JAX package:
 the row-group layout of every choice of G (the entries, the rows, the
 padding and the balance, and the tendency evaluated through it against
-``Tendency`` and the JAX tendency), the plain version in float32 against
+``Tendency`` and the JAX tendency), the resident kernel's records evaluated
+bit for bit as the layout, the plain version in float32 against
 the TPU kernel it replaces (``make_pallas_rk4_f32``, run in interpret
 mode), and in float64 against ``make_rk_step``.  On the CPU the wrapper
 runs the plain version and launches nothing; the kernel itself is compared
@@ -40,6 +41,9 @@ def _port(tensor, dtype=torch.float64, device="cpu"):
     return from_numpy(tensor.coords, tensor.data, tensor.shape, dtype, device)
 
 
+LAYOUT_GROUPS = (1, 2, 4, 8)     # the G the layout is checked at
+
+
 @pytest.mark.parametrize("make_params", [_maooam_params, _rp_params],
                          ids=["maooam", "rp"])
 def test_csr_layout_reproduces_the_tendency(make_params):
@@ -71,7 +75,7 @@ def _layout_and_csr(tensor, groups):
                                      tensor.shape)
 
 
-@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
+@pytest.mark.parametrize("groups", LAYOUT_GROUPS)
 def test_group_layout_places_every_entry_once(maooam, groups):
     """Every entry is in exactly one place, in its row's slot; each row lives
     in one group, padded with zero entries to whole chunks, its last chunk
@@ -111,7 +115,7 @@ def test_group_layout_places_every_entry_once(maooam, groups):
     assert int(lay.lengths.max() - lay.lengths.min()) <= int(padded.max())
 
 
-@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
+@pytest.mark.parametrize("groups", LAYOUT_GROUPS)
 def test_group_tendency_matches_tendency_and_jax(maooam, groups):
     pars, f, tensor = maooam
     lay = fused_rk4.group_layout(tensor.coords, tensor.data, tensor.shape,
@@ -124,6 +128,26 @@ def test_group_tendency_matches_tendency_and_jax(maooam, groups):
                                rtol=0, atol=1e-15)
     np.testing.assert_allclose(out.numpy(), np.asarray(f.batched(0., x)),
                                rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_resident_records_evaluate_the_tendency(maooam, dtype):
+    """The resident K1's 16-byte records (``resident_records``, at the
+    layout's own width: its shared-memory bytes are the layout's), decoded
+    as the kernel decodes them (``streamed_tendency``), give
+    ``group_tendency``'s tendency bit for bit in the state's dtype."""
+    pars, _, tensor = maooam
+    lay = fused_rk4.group_layout(tensor.coords, tensor.data, tensor.shape,
+                                 fused_rk4.K1.groups)
+    recs = fused_rk4.resident_records(lay, dtype)
+    assert recs.shape == lay.jk.shape + (4,) and recs.dtype == np.int32
+    np.testing.assert_array_equal(recs[..., 0], lay.jk)
+    np.testing.assert_array_equal(recs[..., 1], lay.ctl)
+    x = torch.as_tensor(np.random.default_rng(12).random((5, pars.ndim))
+                        * 0.05, dtype=dtype)
+    assert torch.equal(fused_rk4.streamed_tendency(recs, lay.lengths, x),
+                       fused_rk4.group_tendency(lay, x))
 
 
 def test_group_layout_writes_rows_without_entries():
@@ -199,16 +223,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("groups", fused_rk4.GROUPS)
 @pytest.mark.parametrize("dtype,tol,n_steps", [
     (torch.float64, dict(rtol=1e-9, atol=1e-11), 301),
     (torch.float32, dict(rtol=1e-4, atol=1e-6), 100),
 ], ids=["f64", "f32"])
 def test_kernel_matches_plain_version_on_card(maooam, cuda_device, dtype, tol,
-                                              n_steps, groups):
-    """The kernel against the float64 plain version on the card, for every
-    G: B = 1000 (a ragged last block), the reference's grid with a shorter
-    last step, a record every 7 steps."""
+                                              n_steps):
+    """The kernel against the float64 plain version on the card: B = 1000
+    (a ragged last block), the reference's grid with a shorter last step, a
+    record every 7 steps."""
     pars, _, tensor = maooam
     dts = torch.as_tensor(np.diff(time_grid(0., 30.05, 0.1))[:n_steps],
                           device=cuda_device)
@@ -216,7 +239,7 @@ def test_kernel_matches_plain_version_on_card(maooam, cuda_device, dtype, tol,
                         * 0.01, device=cuda_device)
     before = fused_rk4.launches
     y, rec = fused_rk4.fused_rk4(_port(tensor, dtype, cuda_device),
-                                 x.to(dtype), dts, 7, groups=groups)
+                                 x.to(dtype), dts, 7)
     torch.cuda.synchronize()
     assert fused_rk4.launches == before + 1
     y_ref, rec_ref = fused_rk4.fused_rk4_reference(
@@ -244,9 +267,10 @@ def test_traced_integrate_records_the_launch_spans(maooam, cuda_device,
     f = _port(tensor, torch.float64, cuda_device)
     if kernel == "streamed":
         limit = fused_rk4.streamed_smem_bytes(
-            f.shape[0], fused_rk4.DEFAULT_GROUPS, torch.float64)
+            f.shape[0], fused_rk4.K1.groups, torch.float64)
         monkeypatch.setattr(_build, "max_smem_optin", lambda device: limit)
-    assert fused_rk4.choose_kernel(f, torch.float64, cuda_device) == kernel
+    assert fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64,
+                                 cuda_device).kernel == kernel
     counter = "launches" if kernel == "resident" else "launches_streamed"
     ic = np.random.default_rng(3).random((64, pars.ndim)) * 0.01
     profiling.reset_spans()
@@ -278,14 +302,15 @@ H100_OPTIN = 232448      # the H100's opt-in shared memory a block (bytes)
 
 def _streamed_limit(f, dtype=torch.float64):
     """A shared-memory limit that only the streamed K1's layout fits."""
-    return fused_rk4.streamed_smem_bytes(f.shape[0], fused_rk4.DEFAULT_GROUPS,
+    return fused_rk4.streamed_smem_bytes(f.shape[0], fused_rk4.K1.groups,
                                          dtype)
 
 
 def test_launch_plan_is_built_once_a_key(maooam):
     """Two requests for one key give one plan; its tables are built (one
     ``group_layout``) at the first and served from the plan at the second,
-    which counts a plan hit; the plan's choice is ``choose_kernel``'s."""
+    which counts a plan hit; the plan's choice is ``pick_kernel``'s of its
+    layouts' bytes."""
     _, _, tensor = maooam
     f = _port(tensor)
     builds, hits = fused_rk4.layout_builds, fused_rk4.plan_hits
@@ -301,20 +326,21 @@ def test_launch_plan_is_built_once_a_key(maooam):
     assert fused_rk4.plan_hits - hits == 1
     assert got[0][0] == got[1][0] == plan.kernel == "resident"
     assert all(a is b for a, b in zip(got[0][1], got[1][1]))
-    assert plan.kernel == fused_rk4.choose_kernel(f, torch.float64, "cpu",
-                                                  limit=H100_OPTIN)
+    assert plan.sizes == fused_rk4.K1.sizes(f.shape[0], 8, plan.rows.width,
+                                            torch.float64)
+    assert plan.kernel == fused_rk4.pick_kernel(plan.sizes, H100_OPTIN)
     assert list(f.launch_plans.values()) == [plan]
 
 
 @pytest.mark.parametrize("change", ["groups", "dtype", "limit", "family"])
 def test_launch_plan_is_another_for_another_key(maooam, change):
     """Another G, dtype, shared-memory limit or kernel family gives another
-    plan beside the first, with the choice ``choose_kernel`` (or
-    ``df_choose_kernel``) makes for it."""
+    plan beside the first, with the choice ``pick_kernel`` makes from that
+    family's bytes at that G, dtype and limit."""
     _, _, tensor = maooam
     f = _port(tensor)
     args = dict(family=fused_rk4.K1, dtype=torch.float64,
-                groups=fused_rk4.DEFAULT_GROUPS, limit=H100_OPTIN)
+                groups=fused_rk4.K1.groups, limit=H100_OPTIN)
     first = fused_rk4.launch_plan(f, device="cpu", **args)
     args.update({"groups": dict(groups=4), "dtype": dict(dtype=torch.float32),
                  "limit": dict(limit=_streamed_limit(f)),
@@ -323,10 +349,10 @@ def test_launch_plan_is_another_for_another_key(maooam, change):
     other = fused_rk4.launch_plan(f, device="cpu", **args)
     assert other is not first and len(f.launch_plans) == 2
     assert fused_rk4.launch_plan(f, device="cpu", **args) is other
-    choose = (fused_df_rk4.df_choose_kernel if change == "family"
-              else fused_rk4.choose_kernel)
-    assert other.kernel == choose(f, args["dtype"], "cpu", args["groups"],
-                                  args["limit"])
+    width = fused_rk4.row_groups(f.coords, f.shape[0], args["groups"]).width
+    sizes = args["family"].sizes(f.shape[0], args["groups"], width,
+                                 args["dtype"])
+    assert other.kernel == fused_rk4.pick_kernel(sizes, args["limit"])
     assert other.kernel == ("streamed" if change == "limit" else "resident")
 
 
@@ -360,7 +386,8 @@ def test_launch_plan_follows_a_reassigned_tensor(maooam, array):
     assert fused_rk4.layout_builds - builds == 1
     assert new.data is f.data and new.coords is f.coords
     scale = 2. if array == "data" else 1.
-    assert torch.equal(tables[3], torch.as_tensor(old.layout.vals) * scale)
+    vals = np.ascontiguousarray(tables[1].numpy()[..., 2:]).view("<f8")
+    np.testing.assert_array_equal(vals[..., 0], old.layout.vals * scale)
 
 
 @pytest.mark.parametrize("family, dtype, kernel", [
@@ -369,24 +396,24 @@ def test_launch_plan_follows_a_reassigned_tensor(maooam, array):
     ("DF", torch.float32, "resident"), ("DF", torch.float32, "streamed"),
 ])
 def test_plan_tables_equal_the_layout(maooam, family, dtype, kernel):
-    """A plan's tables, built on the CPU, are ``group_layout``'s (values in
-    the state's dtype, or K2's (hi, lo) split) and ``streamed_records``'
-    (``df_streamed_records``') bit for bit, in the launcher's order; a
-    forced kernel gets its own tables in the same plan."""
+    """A plan's tables, built on the CPU, are ``group_layout``'s as the
+    kernel reads them bit for bit, in the launcher's order: K1's packed
+    records (``resident_records``, ``streamed_records``, values in the
+    state's dtype), K2's resident tables (values as their (hi, lo) split)
+    and ``df_streamed_records``; a forced kernel gets its own tables in the
+    same plan."""
     _, _, tensor = maooam
     f = _port(tensor)
     fam = fused_rk4.K1 if family == "K1" else fused_df_rk4.DF
     got, tables = fused_rk4.plan_tables(f, fam, kernel, dtype, "cpu",
                                         limit=H100_OPTIN)
-    lay = fused_rk4.group_layout(f.coords, f.data, f.shape,
-                                 fused_rk4.DEFAULT_GROUPS)
+    lay = fused_rk4.group_layout(f.coords, f.data, f.shape, fam.groups)
     if kernel == "streamed":
         recs = (fused_rk4.streamed_records(lay, dtype) if family == "K1"
                 else fused_df_rk4.df_streamed_records(lay))
         want = (lay.lengths, recs)
     elif family == "K1":
-        want = (lay.lengths, lay.jk, lay.ctl,
-                torch.as_tensor(lay.vals, dtype=dtype))
+        want = (lay.lengths, fused_rk4.resident_records(lay, dtype))
     else:
         want = (lay.lengths, lay.jk, lay.ctl,
                 *fused_df_rk4.split_values(lay.vals))
@@ -429,7 +456,7 @@ def test_a_copy_of_the_module_builds_its_own_plans(maooam):
 
 
 def _k1_run(f, y, dts, kernel):
-    out = fused_rk4._launch(kernel, f, y, dts, 7)
+    out = fused_rk4.K1.launch(f, y, dts, 7, kernel)
     torch.cuda.synchronize()
     return out
 
@@ -470,7 +497,7 @@ def test_stored_plan_launches_bit_equal_k2(maooam, cuda_device, kernel):
         device=cuda_device))
 
     def run(g):
-        out = fused_df_rk4._launch(kernel, g, *y, dts, 7)
+        out = fused_df_rk4.DF.launch(g, y, dts, 7, kernel)
         torch.cuda.synchronize()
         return [t for pair in out for t in pair]
 

@@ -1,5 +1,5 @@
-"""K5, the fused rank-5 RK4 kernel (``ops/fused_rk4_quartic.py``,
-``csrc/rk4_quartic.cu``).
+"""K5, the fused rank-5 RK4 kernel (``ops/fused_rk4_quartic.py``; the
+resident kernel of ``csrc/rk4_fused.cu`` over a four-index entry).
 
 On the CPU: the layout (the packed indices, the rows' groups, the zero
 padding, every entry exactly once), its plain twin
@@ -225,11 +225,11 @@ def test_records_pack_the_layout(models, dtype):
 
 
 def test_groups_rule(models):
-    """G is the kernel's 16 for every rank-5 tensor, the route's and the
+    """G is K5's 16 for every rank-5 tensor, the route's and the
     launcher's plans both: 16 groups shorten T4's longest table from 744
     records to 430 (its 428-entry row and a chunk ahead) and dynamic-T's
     too."""
-    assert k5.GROUPS == 16
+    assert k5.K5.groups == 16
     for name, widths in (("t4", (744, 430)), ("dynT", None)):
         t = models[name]
         w8, w16 = (fused_rk4.row_groups(t.coords, t.shape[0], g).width
@@ -244,37 +244,37 @@ def test_t4_fits_the_h100(models, groups, width):
     """T4's layout (744 records a group at G = 8, 430 at 16) and the state
     rows of a block fit the H100's opt-in shared memory, in float64 and
     float32; the formula is the kernel's: records, then four rows of 32
-    lanes."""
+    lanes (K1's resident formula: one resident kernel)."""
     t = models["t4"]
     assert fused_rk4.row_groups(t.coords, 39, groups).width == width
     for dtype, item in ((torch.float64, 8), (torch.float32, 4)):
-        size = k5.quartic_smem_bytes(39, groups, width, dtype)
+        size = fused_rk4.smem_bytes(39, groups, width, dtype)
         assert size == 16 * groups * width + item * (2 * 38 + 2 * 39) * 32
         assert size <= H100_OPTIN
     with pytest.raises(TypeError):
-        k5.quartic_smem_bytes(39, groups, width, torch.float16)
+        fused_rk4.smem_bytes(39, groups, width, torch.float16)
 
 
 # -- the launch plan ----------------------------------------------------------
 
 def test_k5_plan_is_built_once_a_key_beside_k1s(models):
     """K5's plan of a rank-5 tendency: one plan and one layout a key (the
-    second tables' request a plan hit) at G = ``GROUPS``, the records of
+    second tables' request a plan hit) at K5's G, the records of
     ``quartic_records``; K1's plan of the same module is another."""
     t = models["t4"]
     f = _tendency(t)
     builds, hits = k5.layout_builds, fused_rk4.plan_hits
     k1_builds = fused_rk4.layout_builds
-    plan = fused_rk4.launch_plan(f, k5.K5, torch.float64, "cpu", k5.GROUPS,
+    plan = fused_rk4.launch_plan(f, k5.K5, torch.float64, "cpu",
                                  limit=H100_OPTIN)
     assert plan.kernel == "resident" and plan.rows.width == 430
-    assert plan.sizes == (k5.quartic_smem_bytes(39, 16, plan.rows.width,
-                                                torch.float64), None)
+    assert plan.sizes == (fused_rk4.smem_bytes(39, 16, plan.rows.width,
+                                               torch.float64), None)
     got = [fused_rk4.plan_tables(f, k5.K5, None, torch.float64, "cpu",
-                                 k5.GROUPS, limit=H100_OPTIN)
+                                 limit=H100_OPTIN)
            for _ in range(2)]
     assert fused_rk4.launch_plan(f, k5.K5, torch.float64,
-                                 torch.device("cpu"), k5.GROUPS,
+                                 torch.device("cpu"), 16,
                                  limit=H100_OPTIN) is plan
     assert k5.layout_builds - builds == 1
     assert fused_rk4.layout_builds == k1_builds
@@ -296,13 +296,13 @@ def test_k5_plan_without_room_is_none(models):
     K5's own error, naming the limit."""
     t = models["t4"]
     f = _tendency(t)
-    plan = fused_rk4.launch_plan(f, k5.K5, torch.float64, "cpu", k5.GROUPS,
+    plan = fused_rk4.launch_plan(f, k5.K5, torch.float64, "cpu",
                                  limit=100_000)
     assert plan.kernel is None
     with pytest.raises(RuntimeError, match="rk4_quartic.*does not fit the "
                                            "100000 B"):
         fused_rk4.plan_tables(f, k5.K5, None, torch.float64, "cpu",
-                              k5.GROUPS, limit=100_000)
+                              limit=100_000)
 
 
 class _OnCard:
@@ -511,9 +511,9 @@ def test_stored_plan_launches_bit_equal(models, cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_both_group_counts_agree(models, cuda_device):
-    """The layout at G = 8 (a plan's tables at 8, through the launcher's
-    private run) against K5's G = 16: the same rows summed in the same
-    order, so bit-equal."""
+    """The layout at G = 8 (a plan's tables at 8, launched by K5's run)
+    against K5's G = 16: the same rows summed in the same order, so
+    bit-equal."""
     t = models["t4"]
     f = _tendency(t, torch.float64, cuda_device)
     y = states(38, 100, 9, device=cuda_device)
@@ -521,7 +521,7 @@ def test_both_group_counts_agree(models, cuda_device):
     got16 = k5.fused_rk4_quartic(f, y, dts, 10)
     _, tables8 = fused_rk4.plan_tables(f, k5.K5, None, torch.float64,
                                        cuda_device, 8)
-    got8 = k5._run(tables8, t.shape[0], y, dts, 10)
+    got8 = k5.K5.run("resident", tables8, t.shape[0], y, dts, 10)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got8, got16))
 

@@ -10,10 +10,10 @@ only the two stage inputs on chip.  Checked here on the CPU:
   MAOOAM ndim 36, 104 and 228 (the resolution sweep's settings) for
   float32, float64 and twofloat, against the H100's opt-in limit of
   232,448 bytes passed explicitly, and the largest ndim each reaches;
-* the launchers' choice between the resident and the streamed kernel
-  (``choose_kernel`` / ``df_choose_kernel``: ``resident``, ``streamed`` or
-  neither, the plain step loop) for each precision at those widths, on a
-  stand-in card state;
+* the choice between the resident and the streamed kernel (a launch
+  plan's ``kernel``: ``resident``, ``streamed`` or neither, the plain step
+  loop) for each precision at those widths, and the family ``fused_route``
+  returns on a stand-in card state;
 * the records the streamed kernels read (``streamed_records`` /
   ``df_streamed_records``: ``group_layout``'s tables as 16-byte records,
   padded to whole ring tiles), evaluated by their plain twins
@@ -64,11 +64,18 @@ def streamed_bytes(precision, n1, groups=8):
     return fused_rk4.streamed_smem_bytes(n1, groups, dtype)
 
 
-def choose(f, precision, **kw):
+def plan(f, precision, limit=None):
+    """The launch plan of ``f`` on a card in ``precision`` (the card's
+    limit, or ``limit``)."""
     if precision == "twofloat":
-        return fused_df_rk4.df_choose_kernel(f, torch.float32, "cuda", **kw)
+        return fused_rk4.launch_plan(f, fused_df_rk4.DF, torch.float32,
+                                     "cuda", limit=limit)
     dtype = torch.float32 if precision == "float32" else torch.float64
-    return fused_rk4.choose_kernel(f, dtype, "cuda", **kw)
+    return fused_rk4.launch_plan(f, fused_rk4.K1, dtype, "cuda", limit=limit)
+
+
+def choose(f, precision, limit=None):
+    return plan(f, precision, limit).kernel
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)
@@ -81,25 +88,23 @@ def test_streamed_twins_give_the_launchers_bytes(ndim, precision):
     itemsize = 4 if precision == "float32" else 8
     assert want == fused_rk4.ring_bytes(8) + itemsize * 2 * n1 * 32
     assert fused_rk4.ring_bytes(8) == 8 * 4 * 32 * 16
-    # the records do not count: only n1 does; the bound is inclusive
-    kw = dict(groups=8)
-    if precision == "twofloat":
-        fits = fused_df_rk4.df_streamed_fits
-        dtype = torch.float32
-    else:
-        fits = fused_rk4.streamed_fits
-        dtype = torch.float32 if precision == "float32" else torch.float64
-    assert fits(f, dtype, "cuda", limit=H100_OPTIN, **kw)
-    assert fits(f, dtype, "cuda", limit=want, **kw)
-    assert not fits(f, dtype, "cuda", limit=want - 1, **kw)
+    # the records do not count: only n1 does; the plan's streamed bytes are
+    # the twin's, and its bound is inclusive
+    assert plan(f, precision, H100_OPTIN).sizes[1] == want
+    assert fused_rk4.pick_kernel((None, want), want) == "streamed"
+    assert fused_rk4.pick_kernel((None, want), want - 1) is None
 
 
 @pytest.mark.parametrize("precision, largest", [("float64", 421),
                                                 ("float32", 843),
                                                 ("twofloat", 421)])
 def test_streamed_limit_on_the_h100(precision, largest):
+    """The twins' bytes and the launch plans' choice at the streamed
+    kernels' last width and one past it, on the H100."""
     assert streamed_bytes(precision, largest + 1) <= H100_OPTIN
     assert streamed_bytes(precision, largest + 2) > H100_OPTIN
+    assert choose(synthetic(largest + 1), precision, H100_OPTIN) == "streamed"
+    assert choose(synthetic(largest + 2), precision, H100_OPTIN) is None
 
 
 @pytest.mark.parametrize("ndim", [36, 104, 228])
@@ -117,9 +122,10 @@ def test_kernel_choice(ndim, monkeypatch):
         state = ((_OnCard(torch.float32),) * 2 if precision == "twofloat"
                  else _OnCard(torch.float32 if precision == "float32"
                               else torch.float64))
-        g = fdf if precision == "twofloat" else f
-        assert fused_route(g, state, rk4_tableau())
-        assert not fused_route(g, state, rk2_tableau())
+        g, family = ((fdf, fused_df_rk4.DF) if precision == "twofloat"
+                     else (f, fused_rk4.K1))
+        assert fused_route(g, state, rk4_tableau()) is family
+        assert fused_route(g, state, rk2_tableau()) is None
 
 
 def test_kernel_choice_past_the_streamed_limit(monkeypatch):
@@ -129,9 +135,11 @@ def test_kernel_choice_past_the_streamed_limit(monkeypatch):
     f = synthetic(600)
     fdf = DfTendency(f.coords, f.data, f.shape, device="cpu")
     assert [choose(f, p) for p in PRECISIONS] == [None, "streamed", None]
-    assert not fused_route(f, _OnCard(torch.float64), rk4_tableau())
-    assert fused_route(f, _OnCard(torch.float32), rk4_tableau())
-    assert not fused_route(fdf, (_OnCard(torch.float32),) * 2, rk4_tableau())
+    assert fused_route(f, _OnCard(torch.float64), rk4_tableau()) is None
+    assert fused_route(f, _OnCard(torch.float32),
+                       rk4_tableau()) is fused_rk4.K1
+    assert fused_route(fdf, (_OnCard(torch.float32),) * 2,
+                       rk4_tableau()) is None
 
 
 _jax_f = {}
@@ -214,21 +222,17 @@ def test_df_streamed_records_evaluate_the_tendency(ndim):
 def test_launchers_refuse_other_dtypes_and_devices():
     f = port_tendency("sweep", 36)
     for call in (lambda: fused_rk4.streamed_smem_bytes(37, 8, torch.float16),
-                 lambda: fused_rk4.streamed_fits(f, torch.float16, "cuda",
-                                                 limit=H100_OPTIN),
-                 lambda: fused_rk4.choose_kernel(f, torch.float16, "cuda",
-                                                 limit=H100_OPTIN),
+                 lambda: fused_rk4.smem_bytes(37, 8, 50, torch.float16),
+                 lambda: fused_rk4.launch_plan(f, fused_rk4.K1, torch.float16,
+                                               "cuda", limit=H100_OPTIN),
                  lambda: fused_rk4.streamed_records(
                      fused_rk4.group_layout(f.coords, f.data, f.shape, 8),
                      torch.float16)):
         with pytest.raises(TypeError, match="float32 or float64"):
             call()
-    for call in (lambda: fused_df_rk4.df_streamed_fits(
-                     f, torch.float64, "cuda", limit=H100_OPTIN),
-                 lambda: fused_df_rk4.df_choose_kernel(
-                     f, torch.float64, "cuda", limit=H100_OPTIN)):
-        with pytest.raises(TypeError, match="float32"):
-            call()
+    with pytest.raises(TypeError, match="float32"):
+        fused_rk4.launch_plan(f, fused_df_rk4.DF, torch.float64, "cuda",
+                              limit=H100_OPTIN)
     fdf = DfTendency(f.coords, f.data, f.shape, device="cpu")
     y = torch.zeros((2, 36), dtype=torch.float64, device="meta")
     dts = torch.full((3,), 0.1, dtype=torch.float64, device="meta")
@@ -237,7 +241,7 @@ def test_launchers_refuse_other_dtypes_and_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_df_rk4.fused_df_rk4(fdf, y.float(), y.float(), dts)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        fused_rk4._launch("streamed", f, y, dts)
+        fused_rk4.K1.launch(f, y, dts, kernel="streamed")
 
 
 def test_cpu_states_run_the_plain_version_whatever_the_kernel():
@@ -254,8 +258,8 @@ def test_cpu_states_run_the_plain_version_whatever_the_kernel():
                                                      dts)
     runs = [(fused_rk4.fused_rk4(f, y, dts),
              fused_df_rk4.fused_df_rk4(fdf, *df_from_f64(y), dts))]
-    runs += [(fused_rk4._launch(kernel, f, y, dts),
-              fused_df_rk4._launch(kernel, fdf, *df_from_f64(y), dts))
+    runs += [(fused_rk4.K1.launch(f, y, dts, kernel=kernel),
+              fused_df_rk4.DF.launch(fdf, df_from_f64(y), dts, kernel=kernel))
              for kernel in ("resident", "streamed")]
     for (got, _), (got_df, _) in runs:
         assert torch.equal(got, want)
@@ -279,13 +283,13 @@ def run(f, precision, y, dts, kernel, write_every=7):
     stacked)."""
     if precision == "twofloat":
         fdf = DfTendency(f.coords, f.data, f.shape, device=y.device)
-        got, recs = fused_df_rk4._launch(kernel, fdf, *df_from_f64(y), dts,
-                                         write_every)
+        got, recs = fused_df_rk4.DF.launch(fdf, df_from_f64(y), dts,
+                                           write_every, kernel)
         return torch.stack(got), torch.stack(recs)
     if precision == "float32":
         f, y = Tendency(f.coords, f.data, f.shape, dtype=torch.float32,
                         device=y.device), y.float()
-    return fused_rk4._launch(kernel, f, y, dts, write_every)
+    return fused_rk4.K1.launch(f, y, dts, write_every, kernel)
 
 
 @pytest.mark.cuda
