@@ -2391,17 +2391,22 @@ def large_models_phase(card, dev):
             fail(f"ndim {ndim} {precision}: timed launches {launched}, "
                  f"expected 3 of {want}")
         plain_ms = cuda_ms(run_plain)
-        blocks = -(-B // 32)
+        # the streamed K1 runs each set of 32 as a cluster of the plan's c
+        cluster = (fused_rk4.launch_plan(fk, fused_rk4.K1, fk.dtype,
+                                         yk.device).cluster
+                   if want == "rk4_streamed" else 1)
+        blocks = -(-B // 32) * cluster
         per_sm = blocks_per_sm(smem)
         row = timed[f"ndim{ndim}_{precision}_B{B}_x{steps}"] = {
             "kernel": want, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "share_of_bound": b_ms / ms,
-            "smem_bytes": smem, "blocks": blocks, "blocks_per_sm": per_sm,
-            "sms_busy_share": min(blocks, sms) / sms}
+            "smem_bytes": smem, "blocks": blocks, "cluster": cluster,
+            "blocks_per_sm": per_sm, "sms_busy_share": min(blocks, sms) / sms}
         print(f"[12] {want} ndim {ndim} {precision} B={B} x {steps} steps: "
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
               f"({b_by}), share {b_ms / ms:.4f}; {blocks} blocks of {smem} B "
-              f"({per_sm} an SM) on {sms} SMs; {card}", flush=True)
+              f"(clusters of {cluster}, {per_sm} an SM) on {sms} SMs; {card}",
+              flush=True)
     out["times"] = timed
 
     # the float32 kernel's gap to float64 along 1000 steps at ndim 104 (the

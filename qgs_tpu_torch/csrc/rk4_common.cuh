@@ -23,6 +23,15 @@
 // zero state and reach every barrier; only their loads and stores are
 // skipped.
 //
+// What serves a set of 32 trajectories is the Warp type's Block, a type of
+// static hooks: kBlocks, the blocks that split the set's rows (1 for a
+// block of its own, OneBlock; C for a thread-block cluster of the streamed
+// kernel, rk4_streamed.cu); rank(), this block's place among them; tile(),
+// the set's index; sync(), the stage barrier; put(x, i, v), a row's next
+// stage input into every block's copy of it.  The state rows a block loads
+// into sy and writes out are those of its rank: rows rank * G + w + m *
+// kBlocks * G of warp w.
+//
 // The RK4 combine follows qgs_tpu.integrators.rk.make_rk_step term by term:
 // stage inputs y + (dt*a)*k, and y_new = (((y + (dt/6)k1) + (dt/3)k2) +
 // (dt/3)k3) + (dt/6)k4, with dt = dts[s] cast to the state type; a row's
@@ -46,20 +55,32 @@ __device__ __forceinline__ float rec_value(int4 raw, float) {
   return __int_as_float(raw.z);
 }
 
-// A block's state (B, n) into sy [n][lane] and the stage input xa [n1][lane]
-// (row 0 the dummy xx[0] = 1, in xb too).  No barrier.
-template <typename T>
+// The hooks of a block that serves its 32 trajectories alone (the resident
+// kernels, and the streamed one without a cluster).
+struct OneBlock {
+  static constexpr int kBlocks = 1;
+  static __device__ __forceinline__ int rank() { return 0; }
+  static __device__ __forceinline__ int tile() { return blockIdx.x; }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+  template <typename T>
+  static __device__ __forceinline__ void put(T* x, int i, T v) { x[i] = v; }
+};
+
+// A set's state (B, n) into the stage input xa [n1][lane] (row 0 the dummy
+// xx[0] = 1, in xb too) and this block's rows of it into sy [n][lane].  No
+// barrier.
+template <typename Block, typename T>
 __device__ __forceinline__ void load_state(const T* y, int B, int n, T* sy,
                                            T* xa, T* xb) {
   const int groups = blockDim.x / kLanes;
   const int w = threadIdx.x / kLanes;
   const int t = threadIdx.x % kLanes;
-  const long long b = (long long)blockIdx.x * kLanes + t;
+  const long long b = (long long)Block::tile() * kLanes + t;
   const bool live = b < B;
   const T* yb = y + b * n;
   for (int i = w; i < n; i += groups) {
     const T v = live ? yb[i] : T(0);
-    sy[i * kLanes + t] = v;
+    if (i / groups % Block::kBlocks == Block::rank()) sy[i * kLanes + t] = v;
     xa[(i + 1) * kLanes + t] = v;
   }
   if (w == 0) {
@@ -74,7 +95,8 @@ __device__ __forceinline__ void load_state(const T* y, int B, int n, T* sy,
 //   STAGE 0: acc = y + c_acc k;  xo = y + c_x k
 //   STAGE 1, 2: acc += c_acc k;  xo = y + c_x k
 //   STAGE 3: y = acc + c_acc k;  xo = y
-template <int STAGE, typename T>
+// (xo through Block::put, into every block's copy).
+template <int STAGE, typename Block, typename T>
 __device__ __forceinline__ void combine(int o, T k, T pa, T pb,
                                         T* __restrict__ xo,
                                         T* __restrict__ y,
@@ -82,21 +104,23 @@ __device__ __forceinline__ void combine(int o, T k, T pa, T pb,
                                         T c_x) {
   if (STAGE == 0) {
     acc[o] = pa + c_acc * k;
-    xo[o + kLanes] = pa + c_x * k;
+    Block::put(xo, o + kLanes, pa + c_x * k);
   } else if (STAGE < 3) {
     acc[o] = pb + c_acc * k;
-    xo[o + kLanes] = pa + c_x * k;
+    Block::put(xo, o + kLanes, pa + c_x * k);
   } else {
     const T yn = pa + c_acc * k;
     y[o] = yn;
-    xo[o + kLanes] = yn;
+    Block::put(xo, o + kLanes, yn);
   }
 }
 
 // n_steps RK4 steps of a block whose state is loaded (load_state) and
-// ordered by a barrier: warp.template stage<S>(x, xo, c_acc, c_x) runs
-// stage S of this warp's rows.  Records sy every write_every steps, then
-// stores the final state into y.
+// ordered by Block::sync(): warp.template stage<S>(x, xo, c_acc, c_x) runs
+// stage S of this warp's rows.  Records this block's rows every write_every
+// steps, then stores them as the final state into y: from sy, or, where
+// blocks share a set, from the stage input xa (after stage 3 it holds the
+// new state of every row in every block).
 template <typename T, typename Warp>
 __device__ __forceinline__ void rk4_steps(Warp& warp, T* xa, T* xb,
                                           const T* sy, T* y, int B, int n,
@@ -105,8 +129,12 @@ __device__ __forceinline__ void rk4_steps(Warp& warp, T* xa, T* xb,
   const int groups = blockDim.x / kLanes;
   const int w = threadIdx.x / kLanes;
   const int t = threadIdx.x % kLanes;
-  const long long b = (long long)blockIdx.x * kLanes + t;
+  using Block = typename Warp::Block;
+  const long long b = (long long)Block::tile() * kLanes + t;
   const bool live = b < B;
+  const int first = Block::rank() * groups + w;   // this warp's rows out
+  const int stride = Block::kBlocks * groups;
+  const T* out_rows = Block::kBlocks == 1 ? sy : xa + kLanes;
   int rec_i = 0;
   for (int step = 0; step < n_steps; ++step) {
     const T dt = static_cast<T>(dts[step]);
@@ -115,33 +143,35 @@ __device__ __forceinline__ void rk4_steps(Warp& warp, T* xa, T* xb,
     const T w2 = dt * T(1.0 / 3.0);          // dt * b[1] = dt * b[2]
 
     warp.template stage<0>(xa, xb, w1, h);      // k1
-    __syncthreads();
+    Block::sync();
     warp.template stage<1>(xb, xa, w2, h);      // k2
-    __syncthreads();
+    Block::sync();
     warp.template stage<2>(xa, xb, w2, dt);     // k3
-    __syncthreads();
+    Block::sync();
     warp.template stage<3>(xb, xa, w1, T(0));   // k4 -> y, xa
-    __syncthreads();
+    Block::sync();
 
     if (write_every > 0 && (step + 1) % write_every == 0) {
       if (live) {
         T* out = records + ((long long)rec_i * B + b) * n;
-        for (int i = w; i < n; i += groups) out[i] = sy[i * kLanes + t];
+        for (int i = first; i < n; i += stride)
+          out[i] = out_rows[i * kLanes + t];
       }
       ++rec_i;
     }
   }
   if (live) {
     T* yb = y + b * n;
-    for (int i = w; i < n; i += groups) yb[i] = sy[i * kLanes + t];
+    for (int i = first; i < n; i += stride) yb[i] = out_rows[i * kLanes + t];
   }
 }
 
-// One launch of `kernel` over ceil(B / 32) blocks of `groups` warps with
-// `smem` bytes of dynamic shared memory, `valid` false for arguments the
-// kernel cannot take: clears an earlier, unrelated error, then checks the
-// arguments and the shared memory against the card's opt-in limit a block.
-template <typename... Params, typename... Args>
+// One launch of `kernel` over ceil(B / 32) sets of C blocks (C > 1: one
+// thread-block cluster a set) of `groups` warps with `smem` bytes of
+// dynamic shared memory, `valid` false for arguments the kernel cannot
+// take: clears an earlier, unrelated error, then checks the arguments and
+// the shared memory against the card's opt-in limit a block.
+template <int C = 1, typename... Params, typename... Args>
 cudaError_t launch(bool valid, void (*kernel)(Params...), size_t smem,
                    int groups, int B, void* stream, Args... args) {
   cudaGetLastError();
@@ -158,8 +188,25 @@ cudaError_t launch(bool valid, void (*kernel)(Params...), size_t smem,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = (B + kLanes - 1) / kLanes;
-  kernel<<<grid, groups * kLanes, smem, (cudaStream_t)stream>>>(args...);
-  return cudaGetLastError();
+  if constexpr (C == 1) {
+    kernel<<<grid, groups * kLanes, smem, (cudaStream_t)stream>>>(args...);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = C;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(grid * C);
+    config.blockDim = dim3(groups * kLanes);
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream;
+    config.attrs = cluster;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, kernel, args...);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
 }
 
 }  // namespace qgs_rk4

@@ -103,6 +103,7 @@ __device__ __forceinline__ void load_rec(const int4* rec, int e,
 // accumulator.
 template <typename Term, typename T>
 struct Warp {
+  using Block = OneBlock;
   const int4* rec;
   int len;
   T* y;
@@ -132,9 +133,9 @@ struct Warp {
       s1 += Term::term(xt, ib, vb);
       if (ctla & kLast) {                 // the same for the whole warp
         const int o = (ctla & 0xffff) * kLanes + t;
-        combine<STAGE>(o, s0 + s1, STAGE < 3 ? y[o] : acc[o],
-                       (STAGE == 1 || STAGE == 2) ? acc[o] : T(0), xo, y,
-                       acc, c_acc, c_x);
+        combine<STAGE, Block>(o, s0 + s1, STAGE < 3 ? y[o] : acc[o],
+                              (STAGE == 1 || STAGE == 2) ? acc[o] : T(0),
+                              xo, y, acc, c_acc, c_x);
         s0 = T(0);
         s1 = T(0);
       }
@@ -165,7 +166,7 @@ __device__ __forceinline__ void resident(const int4* __restrict__ recs,
 
   for (int e = threadIdx.x; e < groups * width; e += blockDim.x)
     rec[e] = recs[e];
-  load_state(y, B, n, sy, xa, xb);
+  load_state<OneBlock>(y, B, n, sy, xa, xb);
   __syncthreads();
 
   Warp<Term, T> warp{rec + w * width, lengths[w], sy, acc,

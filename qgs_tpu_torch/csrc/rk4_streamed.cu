@@ -41,10 +41,33 @@
 //     are the resident kernel's expressions in its order, so the two
 //     kernels give the same bits wherever both run.
 //
+// One block an SM in float64 from ndim 228 (133,632 bytes), so ceil(B / 32)
+// blocks leave SMs idle below B = 32 x the card's SMs (B = 1024: 32 blocks
+// on the H100's 132 SMs), each as slow as on a full card.  There a launch
+// may take C > 1 (rk4_streamed_kernel<T, C>, C in 2 .. 8): a thread-block
+// cluster of C blocks a set of 32 trajectories, each block with its G
+// warps walking groups rank * G .. rank * G + G - 1 of a layout of C * G
+// groups, so each block walks about 1 / C of the entries.  Every block
+// keeps its own whole xa / xb, so every gather stays local; a row's next
+// stage input goes into all C copies (its own, and the others' through
+// distributed shared memory: mapa + st.shared::cluster, 32 lanes of 8 or 4
+// bytes), and the stage barrier is the cluster's (release / acquire).  The
+// cluster's y and accumulator stay in the scratch as without one, each
+// block touching only its own rows' (its initial rows of sy are written
+// by the block of the row's rank, before the first barrier); a block
+// writes the records and final state of its rank's rows from its xa.
+// Each row is still summed by one warp over the same chunks in the same
+// order, so every C gives the same bits.  C = 1 is the kernel without a
+// cluster (no attribute, OneBlock's hooks).  The wrapper picks C from the
+// batch and cudaOccupancyMaxActiveClusters
+// (qgs_tpu_torch.ops.fused_rk4.pick_cluster): on an H100 at B = 1024 in
+// float64, C = 3 (the card holds 39 clusters of 3 and 30 of 4), 2.93 times
+// faster than C = 1 (PERF.md, Findings).
+//
 // C interface (no PyTorch headers, so nvcc builds it in seconds):
 //   qgs_rk4_streamed_f32 / qgs_rk4_streamed_f64(recs, lengths, groups,
 //       width, n1, y, B, dts, n_steps, write_every, records, scratch,
-//       stream) -> cudaError_t
+//       cluster, stream) -> cudaError_t
 //   recs (groups, width) 16-byte records {j | k << 16, row | last-chunk
 //       flag, value} (a float value in the third word, the fourth 0);
 //       width a multiple of 32, zero records past each group's length;
@@ -53,10 +76,14 @@
 //   y (B, n) T, in/out, n = n1 - 1; dts (n_steps) double;
 //   records (n_steps / write_every, B, n) T: the state after every
 //       write_every steps (none when write_every == 0);
-//   scratch (ceil(B / 32), 2, n, 32) T: y and the accumulator.
+//   scratch (ceil(B / 32), 2, n, 32) T: y and the accumulator;
+//   cluster: C, the blocks of a set, each of groups / C warps (1 .. 8).
+//   qgs_rk4_streamed_max_clusters(n1, groups, is_double, cluster): the
+//       clusters of C blocks of groups warps the card holds at once.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "rk4_common.cuh"
 #include "stream_ring.cuh"
@@ -66,15 +93,52 @@ namespace {
 using namespace qgs_rk4;
 using qgs_ring::Ring;
 
+constexpr int kMaxCluster = 8;      // the portable cluster sizes
+
 template <typename T>
 __host__ __device__ size_t streamed_smem_bytes(int n1, int groups) {
   return qgs_ring::ring_bytes(groups) + sizeof(T) * (size_t)2 * n1 * kLanes;
 }
 
-// A warp's ring of its group's records, and the block's y and accumulator
-// in device memory.
-template <typename T>
+__device__ __forceinline__ void store_cluster(unsigned at, double v) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;" :: "r"(at), "d"(v)
+               : "memory");
+}
+__device__ __forceinline__ void store_cluster(unsigned at, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(at), "f"(v)
+               : "memory");
+}
+
+// The hooks (rk4_common.cuh) of a cluster of C blocks serving one set.
+template <int C>
+struct Cluster {
+  static constexpr int kBlocks = C;
+  static __device__ __forceinline__ int rank() { return blockIdx.x % C; }
+  static __device__ __forceinline__ int tile() { return blockIdx.x / C; }
+  // Every write before it (shared, remote or device memory) by any block
+  // of the cluster is seen by every block after it.
+  static __device__ __forceinline__ void sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
+  template <typename T>
+  static __device__ __forceinline__ void put(T* x, int i, T v) {
+    const unsigned at = qgs_ring::smem_addr(x + i);
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      unsigned peer;
+      asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(peer)
+          : "r"(at), "r"(r));
+      store_cluster(peer, v);
+    }
+  }
+};
+
+// A warp's ring of its group's records, and its set's y and accumulator in
+// device memory.
+template <typename T, typename B_>
 struct Warp {
+  using Block = B_;
   Ring& ring;
   int len;
   T* y;
@@ -109,7 +173,7 @@ struct Warp {
       s0 += va * xja * xka;
       s1 += vb * xjb * xkb;
       if (ctla & kLast) {                 // the same for the whole warp
-        combine<STAGE>(o, s0 + s1, pa, pb, xo, y, acc, c_acc, c_x);
+        combine<STAGE, Block>(o, s0 + s1, pa, pb, xo, y, acc, c_acc, c_x);
         s0 = T(0);
         s1 = T(0);
         // the next row's y / acc (past the list's end, row 0's: unused)
@@ -124,49 +188,112 @@ struct Warp {
   }
 };
 
-template <typename T>
+template <typename T, int C>
 __global__ void __launch_bounds__(8 * kLanes)
 rk4_streamed_kernel(const int4* __restrict__ recs,
                     const int* __restrict__ lengths, int width, int n1,
                     T* __restrict__ y, int B, const double* __restrict__ dts,
                     int n_steps, int write_every, T* __restrict__ records,
                     T* __restrict__ scratch) {
+  using Block = std::conditional_t<C == 1, OneBlock, Cluster<C>>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int groups = blockDim.x / kLanes;
   const int w = threadIdx.x / kLanes;
   const int t = threadIdx.x % kLanes;
   const int n = n1 - 1;
+  const int g = Block::rank() * groups + w;                  // its group
 
-  int4* tiles = reinterpret_cast<int4*>(smem_raw);  // [group][slot][record]
+  int4* tiles = reinterpret_cast<int4*>(smem_raw);  // [warp][slot][record]
   T* xa = reinterpret_cast<T*>(
       tiles + groups * qgs_ring::kSlots * qgs_ring::kTile);  // [n1][lane]
   T* xb = xa + n1 * kLanes;                                  // [n1][lane]
-  T* sy = scratch + (long long)blockIdx.x * 2 * n * kLanes;  // [n][lane]
+  T* sy = scratch + (long long)Block::tile() * 2 * n * kLanes;  // [n][lane]
   T* acc = sy + n * kLanes;                                  // [n][lane]
 
-  const int len = lengths[w];
-  Ring ring(recs + (size_t)w * width, len,
+  const int len = lengths[g];
+  Ring ring(recs + (size_t)g * width, len,
             tiles + w * qgs_ring::kSlots * qgs_ring::kTile, t);
-  load_state(y, B, n, sy, xa, xb);
-  __syncthreads();
+  load_state<Block>(y, B, n, sy, xa, xb);
+  Block::sync();          // a cluster's: every block runs before any put
   if (len > 0) ring.start();
 
-  Warp<T> warp{ring, len, sy, acc, t};
+  Warp<T, Block> warp{ring, len, sy, acc, t};
   rk4_steps(warp, xa, xb, sy, y, B, n, dts, n_steps, write_every, records);
   if (len > 0) ring.drain();
+  // No put follows the last stage's barrier, so a block of a cluster may
+  // leave once past it: nothing writes its shared memory any more.
 }
 
-template <typename T>
-cudaError_t launch_streamed(const void* recs, const int* lengths, int groups,
-                            int width, int n1, T* y, int B, const double* dts,
-                            int n_steps, int write_every, T* records,
-                            T* scratch, void* stream) {
-  const bool valid = groups >= 1 && groups <= 8 &&
-                     width >= qgs_ring::kTile && width % qgs_ring::kTile == 0;
-  return launch(valid, rk4_streamed_kernel<T>,
-                streamed_smem_bytes<T>(n1, groups), groups, B, stream,
-                static_cast<const int4*>(recs), lengths, width, n1, y, B,
-                dts, n_steps, write_every, records, scratch);
+// One launch at the cluster size `cluster` (C, from 1 to kMaxCluster).
+template <typename T, int C = 1>
+cudaError_t launch_streamed(int cluster, const void* recs,
+                            const int* lengths, int groups, int width, int n1,
+                            T* y, int B, const double* dts, int n_steps,
+                            int write_every, T* records, T* scratch,
+                            void* stream) {
+  if constexpr (C < kMaxCluster) {
+    if (cluster != C)
+      return launch_streamed<T, C + 1>(cluster, recs, lengths, groups, width,
+                                       n1, y, B, dts, n_steps, write_every,
+                                       records, scratch, stream);
+  }
+  const int warps = groups / C;
+  const bool valid = cluster == C && groups % C == 0 && warps >= 1 &&
+                     warps <= 8 && width >= qgs_ring::kTile &&
+                     width % qgs_ring::kTile == 0;
+  return launch<C>(valid, rk4_streamed_kernel<T, C>,
+                   streamed_smem_bytes<T>(n1, warps), warps, B, stream,
+                   static_cast<const int4*>(recs), lengths, width, n1, y, B,
+                   dts, n_steps, write_every, records, scratch);
+}
+
+// The clusters of C blocks of `groups` warps (their shared memory at n1)
+// that the card holds at once (C = 1: the blocks; 0 where a block's shared
+// memory is past the card's opt-in limit, which the launch refuses); minus
+// the CUDA error.
+template <typename T, int C = 1>
+int max_clusters(int cluster, int n1, int groups) {
+  if constexpr (C < kMaxCluster) {
+    if (cluster != C) return max_clusters<T, C + 1>(cluster, n1, groups);
+  }
+  if (cluster != C || groups < 1 || groups > 8)
+    return -(int)cudaErrorInvalidValue;
+  const auto kernel = rk4_streamed_kernel<T, C>;
+  const size_t smem = streamed_smem_bytes<T>(n1, groups);
+  int device = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -(int)err;
+  if (smem > (size_t)max_smem) return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int count = 0;
+  if constexpr (C == 1) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &count, kernel, groups * kLanes, smem);
+    count *= sms;
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(C);
+    config.blockDim = dim3(groups * kLanes);
+    config.dynamicSmemBytes = smem;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&count, kernel, &config);
+  }
+  return err == cudaSuccess ? count : -(int)err;
 }
 
 }  // namespace
@@ -176,20 +303,21 @@ extern "C" {
 int qgs_rk4_streamed_f32(const void* recs, const int* lengths, int groups,
                          int width, int n1, float* y, int B,
                          const double* dts, int n_steps, int write_every,
-                         float* records, float* scratch, void* stream) {
-  return (int)launch_streamed<float>(recs, lengths, groups, width, n1, y, B,
-                                     dts, n_steps, write_every, records,
-                                     scratch, stream);
+                         float* records, float* scratch, int cluster,
+                         void* stream) {
+  return (int)launch_streamed<float>(cluster, recs, lengths, groups, width,
+                                     n1, y, B, dts, n_steps, write_every,
+                                     records, scratch, stream);
 }
 
 int qgs_rk4_streamed_f64(const void* recs, const int* lengths, int groups,
                          int width, int n1, double* y, int B,
                          const double* dts, int n_steps, int write_every,
-                         double* records, double* scratch,
+                         double* records, double* scratch, int cluster,
                          void* stream) {
-  return (int)launch_streamed<double>(recs, lengths, groups, width, n1, y, B,
-                                      dts, n_steps, write_every, records,
-                                      scratch, stream);
+  return (int)launch_streamed<double>(cluster, recs, lengths, groups, width,
+                                      n1, y, B, dts, n_steps, write_every,
+                                      records, scratch, stream);
 }
 
 // The shared memory a launch of the kernel needs (the wrapper's twin of
@@ -197,6 +325,16 @@ int qgs_rk4_streamed_f64(const void* recs, const int* lengths, int groups,
 long long qgs_rk4_streamed_smem_bytes(int n1, int groups, int is_double) {
   return (long long)(is_double ? streamed_smem_bytes<double>(n1, groups)
                                : streamed_smem_bytes<float>(n1, groups));
+}
+
+// The clusters of `cluster` blocks of `groups` warps that the card holds
+// at once (cudaOccupancyMaxActiveClusters; cluster 1: the blocks; 0 where a
+// block does not fit), for the wrapper's choice of C; minus the CUDA error
+// on failure.
+int qgs_rk4_streamed_max_clusters(int n1, int groups, int is_double,
+                                  int cluster) {
+  return is_double ? max_clusters<double>(cluster, n1, groups)
+                   : max_clusters<float>(cluster, n1, groups);
 }
 
 }  // extern "C"

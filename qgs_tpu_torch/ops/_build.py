@@ -49,13 +49,16 @@ def _nvcc():
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # the resident K1's and K5's launches; the streamed K1's add its scratch
+    # and its cluster size
     resident = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr, ptr]
+    streamed = resident[:-1] + [ptr, i32, ptr]
     for name, argtypes in (
             ("qgs_rk4_fused_f32", resident), ("qgs_rk4_fused_f64", resident),
             ("qgs_rk4_quartic_f32", resident),
             ("qgs_rk4_quartic_f64", resident),
-            ("qgs_rk4_streamed_f32", resident[:-1] + [ptr, ptr]),
-            ("qgs_rk4_streamed_f64", resident[:-1] + [ptr, ptr])):
+            ("qgs_rk4_streamed_f32", streamed),
+            ("qgs_rk4_streamed_f64", streamed),
+            ("qgs_rk4_streamed_max_clusters", [i32, i32, i32, i32])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i32

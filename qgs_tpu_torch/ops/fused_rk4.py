@@ -15,7 +15,11 @@ a tendency, and launches it.  There are three:
   (``csrc/rk4_fused.cu``) keeps the tensor's records and the state in one
   block's shared memory; its streamed kernel (``csrc/rk4_streamed.cu``)
   keeps the records in device memory and only the two stage inputs on
-  chip.  Launches count in :data:`launches` and :data:`launches_streamed`.
+  chip, and where the batch's blocks leave SMs idle it runs as
+  thread-block clusters of ``c`` blocks, which split each block's rows
+  (:func:`pick_cluster`).  Launches count in :data:`launches` and
+  :data:`launches_streamed` (the clustered ones in
+  :data:`launches_clustered` too).
 * :data:`~qgs_tpu_torch.ops.fused_df_rk4.DF` (K2): the same in
   double-float.
 * :data:`~qgs_tpu_torch.ops.fused_rk4_quartic.K5`: a rank-5 quartic
@@ -35,7 +39,9 @@ The choice of kernel is made in one place, a tendency's launch plan
 opt-in limit of the card, else ``"streamed"`` where the streamed one does,
 else none (:func:`pick_kernel`).  From the plan's first launch of a kernel
 on it also holds the family's layout and that kernel's device tables
-(:func:`plan_tables`).  A launch looks its plan up under the span
+(:func:`plan_tables`; for the streamed K1 at ``c > 1`` the tables of a
+layout of ``c·G`` groups, and the card's occupancy, queried once a plan).
+A launch looks its plan up under the span
 ``qgs.layout`` and, where the plan is new, uploads its tables under
 ``qgs.layout_in`` (:func:`~qgs_tpu_torch.utils.profiling.span`, recorded
 only under a profiler); :data:`layout_builds` counts the
@@ -66,6 +72,7 @@ from qgs_tpu_torch.utils.profiling import span
 
 launches = 0             # resident K1 launches in this process
 launches_streamed = 0    # streamed K1 launches in this process
+launches_clustered = 0   # those of them as clusters of c > 1 blocks
 layout_builds = 0        # group_layout calls in this process (K1's and K2's)
 plan_hits = 0            # launches whose tables a stored plan held (every
                          # family's: K1's, K2's and K5's)
@@ -83,6 +90,7 @@ REC_BYTES = 16           # an entry record (csrc/rk4_common.cuh)
 # tile), slots a warp
 TILE = 32
 SLOTS = 4
+MAX_CLUSTER = 8          # the largest portable thread-block cluster
 
 
 class GroupLayout(NamedTuple):
@@ -252,6 +260,34 @@ def pick_kernel(sizes, limit):
     return None
 
 
+def pick_cluster(blocks, sms, max_active):
+    """``c``, the blocks of a thread-block cluster that the streamed K1
+    runs each set of 32 members on, for a launch of ``blocks`` sets on a
+    card of ``sms`` SMs that holds ``max_active[c - 1]`` clusters of ``c``
+    blocks at once (``cudaOccupancyMaxActiveClusters``; for ``c = 1`` the
+    blocks): 1 where the sets fill the SMs, else the ``c`` of the least
+    time in this model, the smaller on a tie: the clusters run in waves of
+    ``max_active[c - 1]``, each block walking ``1 / c`` of the entries, and
+    a wave takes as long as its SM of the most blocks, which it spreads
+    evenly over the SMs and which each add a block's time.  Where a block
+    has an SM to itself (``c · max_active[c - 1] <= sms``) a wave takes one
+    block's time and the model counts waves; where several share an SM it
+    counts them whole, which is as slow as they can run (two float32
+    blocks at ndim 228 take 1.4 times one's time on an H100).  A ``c`` the
+    card holds no cluster of is not taken."""
+    if blocks >= sms:
+        return 1
+    best, cost = 1, None
+    for c, active in enumerate(max_active, 1):
+        if active < 1:
+            continue
+        waves, last = divmod(blocks, active)
+        time = waves * -(-c * active // sms) + -(-c * last // sms)
+        if cost is None or time * cost[1] < cost[0] * c:
+            best, cost = c, (time, c)
+    return best
+
+
 def pack_records(index, ctl, words, tile=1):
     """The kernels' 16-byte records of G tables of W entries: int32 (G,
     W', 4), W' the width rounded up to whole ``tile`` s (the streamed
@@ -411,9 +447,10 @@ def no_kernel_fits(name, sizes, n1, limit, device):
         f"the {limit} B of shared memory a block on {device}")
 
 
-def run_records(kernel, fn, tables, n1, y, dts, write_every, *scratch):
+def run_records(kernel, fn, tables, n1, y, dts, write_every, *extra):
     """One launch of the C export ``fn`` of ``kernel`` (the resident K1's
-    or K5's; the streamed K1's, with its ``scratch``) over a launch plan's
+    or K5's; the streamed K1's, with the ``extra`` arguments that follow
+    its records: its scratch's address and its ``c``) over a launch plan's
     tables ``(lengths, recs)`` of a tensor of first dimension ``n1``, the
     state and steps already checked.  Returns ``(y_final, records,
     launched)``, ``launched`` 1, or 0 where the batch or the steps are
@@ -428,8 +465,7 @@ def run_records(kernel, fn, tables, n1, y, dts, write_every, *scratch):
         err = getattr(lib, fn)(
             recs.data_ptr(), lengths.data_ptr(), recs.shape[0], recs.shape[1],
             n1, out.data_ptr(), y.shape[0], dts.data_ptr(), dts.numel(),
-            write_every, records.data_ptr(),
-            *(s.data_ptr() for s in scratch), stream)
+            write_every, records.data_ptr(), *extra, stream)
     raise_on_error(err, kernel)
     return out, records, 1
 
@@ -453,7 +489,10 @@ class KernelFamily(NamedTuple):
     own), ``run(kernel, tables, n1, y, dts, write_every)`` one launch on a
     checked CUDA state, counted in the family module's counters, and
     ``reference(f, y, dts, write_every)`` the plain version that a CPU
-    state runs (None: a CPU state raises)."""
+    state runs (None: a CPU state raises), and ``occupancy(n1, groups,
+    dtype, device)`` the card's SMs and its clusters at each ``c`` for the
+    family's streamed kernel (:func:`pick_cluster`; None where that kernel
+    takes no clusters)."""
     name: str
     module: type
     rank: int
@@ -466,6 +505,7 @@ class KernelFamily(NamedTuple):
     run: Callable
     reference: Optional[Callable]
     layout: Callable = group_layout
+    occupancy: Optional[Callable] = None
 
     def takes(self, f, y):
         """Whether the family's kernels run the tendency module ``f`` on
@@ -528,7 +568,8 @@ class KernelFamily(NamedTuple):
         if y0.device.type == "cpu" and self.reference is not None:
             return self.reference(f, y, dts, write_every)
         self.check(f, y, dts, write_every)
-        kernel, tables = plan_tables(f, self, kernel, y0.dtype, y0.device)
+        kernel, tables = plan_tables(f, self, kernel, y0.dtype, y0.device,
+                                     batch=y0.shape[0])
         return self.run(kernel, tables, f.shape[0], y, dts, write_every)
 
 
@@ -542,14 +583,33 @@ def _k1_tables(layout, kernel, dtype):
     return (layout.lengths, None), (records(layout, dtype), None)
 
 
+def _k1_occupancy(n1, groups, dtype, device):
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        active = tuple(lib.qgs_rk4_streamed_max_clusters(
+            n1, groups, int(dtype == torch.float64), c)
+            for c in range(1, MAX_CLUSTER + 1))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for err in active:
+        if err < 0:
+            raise RuntimeError(f"cannot read the streamed K1's clusters on "
+                               f"{device}: CUDA error {-err} "
+                               f"({_build.error_string(-err)})")
+    return sms, active
+
+
 def _k1_run(kernel, tables, n1, y, dts, write_every):
-    global launches, launches_streamed
+    global launches, launches_streamed, launches_clustered
+    # a cluster's kernel is ("streamed", c), its tables c * G groups
+    # (plan_tables)
+    kernel, cluster = kernel if isinstance(kernel, tuple) else (kernel, 1)
     if kernel == "streamed":
         scratch = y.new_empty((-(-y.shape[0] // LANES), 2, n1 - 1, LANES))
         out, records, launched = run_records(
             "rk4_streamed", _STREAMED_FNS[y.dtype], tables, n1, y, dts,
-            write_every, scratch)
+            write_every, scratch.data_ptr(), cluster)
         launches_streamed += launched
+        launches_clustered += launched * (cluster > 1)
     else:
         out, records, launched = run_records(
             "rk4_fused", _FNS[y.dtype], tables, n1, y, dts, write_every)
@@ -562,7 +622,7 @@ def _k1_run(kernel, tables, n1, y, dts, write_every):
 # otherwise (PERF.md, Findings).  An index word holds j | k << 16.
 K1 = KernelFamily("rk4_fused", Tendency, 3, (torch.float32, torch.float64),
                   False, 1 << 15, 8, _k1_sizes, _k1_tables, _k1_run,
-                  fused_rk4_reference)
+                  fused_rk4_reference, occupancy=_k1_occupancy)
 
 
 class _Plans(dict):
@@ -588,7 +648,10 @@ class LaunchPlan:
     ``None``, :func:`pick_kernel`); from the first launch of a kernel on
     (:func:`plan_tables`), the family's layout (``layout``) and that
     kernel's device tables (``tables``, kernel -> tuple of tensors in the
-    launcher's order)."""
+    launcher's order; ``(kernel, c)`` for a cluster's); from the first
+    streamed launch of a family that clusters it, the card's
+    ``occupancy`` (its SMs and clusters at each ``c``), and the last
+    streamed launch's ``c`` (``cluster``)."""
 
     def __init__(self, f, family, dtype, device, groups, limit):
         self.coords, self.data, self.shape = f.coords, f.data, f.shape
@@ -599,6 +662,8 @@ class LaunchPlan:
         self.kernel = pick_kernel(self.sizes, limit)
         self.layout = None
         self.tables = {}
+        self.occupancy = None
+        self.cluster = 1
 
 
 def launch_plan(f, family, dtype, device, groups=None, limit=None):
@@ -635,15 +700,25 @@ def launch_plan(f, family, dtype, device, groups=None, limit=None):
     return plan
 
 
-def plan_tables(f, family, kernel, dtype, device, groups=None, limit=None):
+def plan_tables(f, family, kernel, dtype, device, groups=None, limit=None,
+                batch=None, _cluster=None):
     """``(kernel, tables)`` of a launch of the tendency ``f`` (every
     launch's one path to its tables): ``kernel`` where it is forced, else
     its plan's choice (:func:`launch_plan`, looked up under the span
-    ``qgs.layout``), and that kernel's device tables.  The plan's first
-    launch of a kernel builds them (the family's layout once a plan, under
-    ``qgs.layout``) and uploads them (under ``qgs.layout_in``); every later
-    one takes the stored tables and counts in :data:`plan_hits`.  Raises
-    where the plan's choice is no kernel."""
+    ``qgs.layout``), and that kernel's device tables.  For the streamed
+    kernel of a family that clusters it (``family.occupancy``), at the
+    family's G, the plan also picks ``c`` for ``batch`` members
+    (:func:`pick_cluster` over the card's occupancy, read once a plan into
+    ``plan.occupancy``; ``_cluster`` forces it, as the checks that hold the
+    clustered launches bit for bit do; kept as ``plan.cluster``), and ``c >
+    1`` returns the kernel as ``(kernel, c)``, the one place the launcher
+    takes ``c`` from, with the tables of a layout of ``c·G`` groups, block
+    rank ``r`` of a cluster running groups ``r·G`` to ``r·G + G - 1``.  The
+    plan's first launch of a kernel (at a ``c``) builds them (the family's
+    layout once a plan and ``c``, under ``qgs.layout``) and uploads them
+    (under ``qgs.layout_in``); every later one takes the stored tables and
+    counts in :data:`plan_hits`.  Raises where the plan's choice is no
+    kernel, or a forced ``c > 1`` where no cluster runs."""
     global plan_hits
     with span("qgs.layout"):
         plan = launch_plan(f, family, dtype, device, groups, limit)
@@ -651,17 +726,39 @@ def plan_tables(f, family, kernel, dtype, device, groups=None, limit=None):
         if kernel is None:
             raise no_kernel_fits(family.name, plan.sizes, plan.shape[0],
                                  plan.limit, plan.device)
-        if kernel in plan.tables:
+        clustered = (kernel == "streamed" and family.occupancy is not None
+                     and plan.groups == family.groups)
+        cluster = _cluster
+        if cluster is None:
+            cluster = 1
+            if clustered and batch:
+                if plan.occupancy is None:
+                    plan.occupancy = family.occupancy(
+                        plan.shape[0], plan.groups, dtype, plan.device)
+                cluster = pick_cluster(-(-batch // LANES), *plan.occupancy)
+        elif cluster != 1 and not (clustered and 1 < cluster <= MAX_CLUSTER):
+            raise ValueError(f"{family.name}'s {kernel} kernel at G = "
+                             f"{plan.groups} takes no cluster of {cluster}")
+        if clustered:
+            plan.cluster = cluster
+        key = kernel if cluster == 1 else (kernel, cluster)
+        if key in plan.tables:
             plan_hits += 1
-            return kernel, plan.tables[kernel]
-        if plan.layout is None:
-            plan.layout = family.layout(plan.coords, plan.data, plan.shape,
-                                        plan.groups, plan.rows)
-        host = family.tables(plan.layout, kernel, dtype)
+            return key, plan.tables[key]
+        if cluster == 1:
+            if plan.layout is None:
+                plan.layout = family.layout(plan.coords, plan.data,
+                                            plan.shape, plan.groups,
+                                            plan.rows)
+            layout = plan.layout
+        else:
+            layout = family.layout(plan.coords, plan.data, plan.shape,
+                                   cluster * plan.groups, None)
+        host = family.tables(layout, kernel, dtype)
     with span("qgs.layout_in"):
-        tables = plan.tables[kernel] = tuple(
+        tables = plan.tables[key] = tuple(
             torch.as_tensor(a, dtype=t, device=plan.device) for a, t in host)
-    return kernel, tables
+    return key, tables
 
 
 def fused_rk4(f, y, dts, write_every=0):

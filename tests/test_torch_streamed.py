@@ -23,13 +23,23 @@ only the two stage inputs on chip.  Checked here on the CPU:
   and the JAX package's ``create_tendencies`` ``f`` at rtol 1e-12 (only
   the summation order differs; twofloat keeps about 48 bits);
 * the launchers refusing other dtypes and devices, and running the plain
-  version on the CPU whichever kernel is asked for.
+  version on the CPU whichever kernel is asked for;
+* the streamed K1's thread-block clusters: ``pick_cluster``'s choice of
+  ``c`` from the sets of 32 members, the card's SMs and its clusters at
+  each ``c``; the layout of ``c·G`` groups (each row in one group, block
+  rank ``r`` of a cluster running groups ``r·G`` to ``r·G + G - 1``), its
+  records evaluating the tendency bit for bit as the 8-group ones do; and
+  the launch plan's ``c`` and tables, through a stand-in occupancy.
 
 On the card (``cuda``-marked, skipped without one): the streamed kernels
 forced where the resident ones run too, bit for bit equal to them at ndim
-36 (B = 4097, a ragged last block) and 104; and at ndim 228 against the
-plain version.
+36 (B = 4097, a ragged last block) and 104; at ndim 228 against the plain
+version; and the clustered streamed K1 at every ``c`` bit for bit equal to
+the launch without a cluster (ndim 228 at B = 1024, 1000 and 33, ndim 104
+forced), with its counters, and ``c = 1`` at B = 4097.
 """
+
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -219,6 +229,158 @@ def test_df_streamed_records_evaluate_the_tendency(ndim):
                                atol=1e-14 * scale)
 
 
+# SMs and clusters at c = 1 .. 8 of a card like the H100 at one block an
+# SM (132 SMs in GPCs of 16 to 18), and of one whose GPCs hold fewer
+H100_LIKE = (132, (132, 66, 44, 33, 26, 22, 18, 16))
+FEWER_FOURS = (132, (132, 66, 42, 30, 24, 20, 14, 12))
+THREE_AN_SM = (132, (396, 198, 124, 92, 69, 62, 47, 45))  # H100, f32, 228
+
+
+@pytest.mark.parametrize("blocks, card, want", [
+    (32, H100_LIKE, 4),                    # one wave of 32 clusters of 4
+    (32, FEWER_FOURS, 3),                  # 30 of 4: two waves; 42 of 3
+    (128, H100_LIKE, 1),                   # B = 4096: every c ties c = 1
+    (129, H100_LIKE, 1),                   # B = 4097: the same
+    (132, H100_LIKE, 1),                   # a block on every SM
+    (200, (132, (132, 66, 44, 33, 26, 22, 18, 16)), 1),   # past the card
+    (1, H100_LIKE, 8),                     # one set: the largest c
+    (1, (132, (132, 66, 44, 33, 26, 22, 18, 0)), 7),      # 8 does not fit
+    (32, (132, (396, 198, 132, 99, 79, 66, 56, 49)), 4),  # three an SM:
+    # c = 8's 256 blocks put two on an SM, as slow as c = 4's one
+    (32, (132, (0,) * 8), 1),              # no block fits: the launch refuses
+    (32, THREE_AN_SM, 4),                  # float32 at ndim 228, B = 1024
+    (64, THREE_AN_SM, 2),                  # B = 2048
+    (128, THREE_AN_SM, 1),                 # B = 4096: c = 2 ties
+    (131, THREE_AN_SM, 1),                 # B = 4192
+    (1, THREE_AN_SM, 8),                   # one set
+])
+def test_pick_cluster(blocks, card, want):
+    """``c`` is 1 where the sets fill the SMs, else the one of least time
+    over ``c`` (the smaller on a tie): waves of clusters, a wave as long
+    as its SM of the most blocks, each block ``1 / c`` of the entries."""
+    assert fused_rk4.pick_cluster(blocks, *card) == want
+
+
+def test_pick_cluster_counts_waves_where_a_block_has_an_sm():
+    """Where a block has an SM to itself (float64 at ndim 228 on an H100)
+    the rule is the fewest ``ceil(blocks / max_active[c - 1]) / c``."""
+    sms, active = H100_F64 = (132, (132, 66, 39, 30, 22, 17, 15, 15))
+    for blocks in range(1, sms):
+        waves = [Fraction(-(-blocks // a), c) for c, a in enumerate(active, 1)]
+        want = waves.index(min(waves)) + 1
+        assert fused_rk4.pick_cluster(blocks, *H100_F64) == want, blocks
+
+
+@pytest.mark.parametrize("ndim", [36, 228])
+@pytest.mark.parametrize("cluster", [2, 3, 4, 8])
+def test_cluster_layout_splits_the_rows(ndim, cluster):
+    """The layout of ``c·G`` groups (block rank ``r`` of a cluster runs
+    groups ``r·G`` to ``r·G + G - 1``): ``row_groups``' assignment, each
+    row's records, ending in one last chunk, in exactly one group, every
+    group's list in increasing rows."""
+    f = port_tendency("sweep", ndim)
+    G = fused_rk4.K1.groups
+    lay = fused_rk4.group_layout(f.coords, f.data, f.shape, cluster * G)
+    rows = fused_rk4.row_groups(f.coords, f.shape[0], cluster * G)
+    np.testing.assert_array_equal(lay.group_of_row, rows.group_of_row)
+    np.testing.assert_array_equal(lay.lengths, rows.load)
+    seen = np.zeros(ndim, int)
+    for g, length in enumerate(lay.lengths):
+        ctl = lay.ctl[g, :length]
+        row = ctl & (fused_rk4.LAST - 1)
+        assert (np.diff(row) >= 0).all()
+        assert (lay.group_of_row[row] == g).all()
+        ends = row[1::2][(ctl[1::2] & fused_rk4.LAST) != 0]
+        seen[ends] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("ndim", [36, 228])
+def test_cluster_records_evaluate_like_eight_groups(ndim):
+    """Each row is summed by one group over the same chunks in the same
+    order at any G, so the records of 32 groups (c = 4) evaluate the
+    tendency bit for bit as the 8 groups' do, in float64 and float32."""
+    f = port_tendency("sweep", ndim)
+    x = torch.as_tensor(states(ndim, 5))
+    for dtype in (torch.float64, torch.float32):
+        got = []
+        for groups in (8, 32):
+            lay = fused_rk4.group_layout(f.coords, f.data, f.shape, groups)
+            got.append(fused_rk4.streamed_tendency(
+                fused_rk4.streamed_records(lay, dtype), lay.lengths,
+                x.to(dtype)))
+        assert torch.equal(got[0], got[1])
+
+
+class _Occupancy:
+    """A stand-in for the card's occupancy query, counting its calls."""
+
+    def __init__(self, card):
+        self.card, self.calls = card, 0
+
+    def __call__(self, n1, groups, dtype, device):
+        self.calls += 1
+        return self.card
+
+
+def test_plan_picks_the_cluster_once_a_plan():
+    """The streamed K1's plan reads the card's occupancy once and picks
+    ``c`` for each launch's batch (``plan.cluster``, the last one's); a
+    cluster's tables are those of the ``c·G``-group layout under
+    ``("streamed", c)``, built once and then served as plan hits; the
+    resident kernel, another family and another G take no cluster."""
+    f = port_tendency("sweep", 228)
+    occupancy = _Occupancy(H100_LIKE)
+    k1 = fused_rk4.K1._replace(occupancy=occupancy)
+    args = (torch.float64, "cpu")
+    hits = fused_rk4.plan_hits
+    for batch, want in ((1024, 4), (1000, 4), (4096, 1), (33, 8), (1024, 4)):
+        kernel, tables = fused_rk4.plan_tables(f, k1, None, *args,
+                                               limit=H100_OPTIN, batch=batch)
+        plan = fused_rk4.launch_plan(f, k1, *args, limit=H100_OPTIN)
+        assert plan.cluster == want
+        assert kernel == ("streamed" if want == 1 else ("streamed", want))
+        assert tables[0].shape[0] == want * 8
+        lay = fused_rk4.group_layout(f.coords, f.data, f.shape, want * 8)
+        assert torch.equal(tables[0], torch.as_tensor(lay.lengths))
+        assert torch.equal(tables[1], torch.as_tensor(
+            fused_rk4.streamed_records(lay, torch.float64)))
+    assert occupancy.calls == 1
+    assert fused_rk4.plan_hits - hits == 2
+    assert set(plan.tables) == {("streamed", 4), "streamed", ("streamed", 8)}
+    kernel, forced = fused_rk4.plan_tables(f, k1, None, *args,
+                                           limit=H100_OPTIN, batch=1024,
+                                           _cluster=2)
+    assert kernel == ("streamed", 2)
+    assert forced[0].shape[0] == 16 and plan.cluster == 2
+    # 16 groups at G = 16 are one block's (which the launch refuses), not
+    # a cluster of two: c comes from the plan, not the tables' shape
+    kernel, tables = fused_rk4.plan_tables(f, k1, "streamed", *args,
+                                           groups=16, limit=H100_OPTIN,
+                                           batch=1024)
+    assert kernel == "streamed" and tables[0].shape[0] == 16
+    assert fused_rk4.plan_tables(f, k1, "resident", *args, limit=1 << 30,
+                                 batch=1024)[1][0].shape[0] == 8
+    with pytest.raises(ValueError, match="no cluster of 2"):
+        fused_rk4.plan_tables(f, k1, "resident", *args, limit=1 << 30,
+                              _cluster=2)
+    for bad in (0, fused_rk4.MAX_CLUSTER + 1):
+        with pytest.raises(ValueError, match=f"no cluster of {bad}"):
+            fused_rk4.plan_tables(f, k1, "streamed", *args,
+                                  limit=H100_OPTIN, _cluster=bad)
+    with pytest.raises(ValueError, match="G = 4 takes no cluster"):
+        fused_rk4.plan_tables(f, k1, "streamed", *args, groups=4,
+                              limit=H100_OPTIN, _cluster=2)
+    assert fused_rk4.plan_tables(f, k1, "streamed", *args, groups=4,
+                                 limit=H100_OPTIN,
+                                 batch=1024)[1][0].shape[0] == 4
+    fdf = DfTendency(f.coords, f.data, f.shape, device="cpu")
+    assert fused_rk4.plan_tables(fdf, fused_df_rk4.DF, None, torch.float32,
+                                 "cpu", limit=H100_OPTIN,
+                                 batch=1024)[1][0].shape[0] == 8
+    assert occupancy.calls == 1
+
+
 def test_launchers_refuse_other_dtypes_and_devices():
     f = port_tendency("sweep", 36)
     for call in (lambda: fused_rk4.streamed_smem_bytes(37, 8, torch.float16),
@@ -327,3 +489,50 @@ def test_streamed_against_plain_at_ndim_228(cuda_device, precision):
     torch.testing.assert_close(recs.double(), ref_recs, **tol)
     with pytest.raises(TypeError):
         fused_rk4.fused_rk4(f, y.half(), dts)
+
+
+def at_cluster(f, y, dts, write_every, cluster):
+    """One launch of the streamed K1 as clusters of ``cluster`` blocks (its
+    plan's tables at that ``c``)."""
+    kernel, tables = fused_rk4.plan_tables(f, fused_rk4.K1, "streamed",
+                                           y.dtype, y.device,
+                                           _cluster=cluster)
+    return fused_rk4.K1.run(kernel, tables, f.shape[0], y, dts, write_every)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+@pytest.mark.parametrize("ndim, B", [(228, 1024), (228, 1000), (228, 33),
+                                     (104, 1000), (228, 4097)])
+def test_clustered_equals_one_block(cuda_device, ndim, B, precision):
+    """The streamed K1 as clusters of every ``c`` from 2 to 8, bit for bit
+    the launch without a cluster (final state and records; at ndim 104 the
+    streamed kernel forced); a launch takes its plan's ``c``
+    (``pick_cluster`` over the card's occupancy: 1 at B = 4097, 129 sets
+    on 132 SMs), and every launch counts in
+    ``launches_streamed``, those at ``c > 1`` in ``launches_clustered``."""
+    fc = port_tendency("sweep", ndim)
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    f = Tendency(fc.coords, fc.data, fc.shape, dtype=dtype,
+                 device=cuda_device)
+    y = torch.as_tensor(states(ndim, B), dtype=dtype, device=cuda_device)
+    dts = torch.full((23,), 0.1, dtype=torch.float64, device=cuda_device)
+    counts = (fused_rk4.launches_streamed, fused_rk4.launches_clustered)
+    want = at_cluster(f, y, dts, 7, 1)
+    for c in range(2, fused_rk4.MAX_CLUSTER + 1):
+        got = at_cluster(f, y, dts, 7, c)
+        assert torch.equal(got[0], want[0]), c
+        assert torch.equal(got[1], want[1]), c
+    got = fused_rk4.K1.launch(f, y, dts, 7, "streamed")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plan = fused_rk4.launch_plan(f, fused_rk4.K1, dtype, cuda_device)
+    sms, active = plan.occupancy
+    assert len(active) == fused_rk4.MAX_CLUSTER and active[0] >= 1
+    assert plan.cluster == fused_rk4.pick_cluster(-(-B // 32), sms, active)
+    if B == 4097:
+        assert plan.cluster == 1
+    launched = fused_rk4.MAX_CLUSTER + 1
+    assert fused_rk4.launches_streamed - counts[0] == launched
+    assert (fused_rk4.launches_clustered - counts[1]
+            == launched - 2 + (plan.cluster > 1))
