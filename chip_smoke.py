@@ -101,7 +101,11 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    and 104, bit-equal to the resident ones, and at ndim 228 against their
    plain versions; times and bounds of the streamed kernels at phase 12's
    shapes, the resolution sweep's Pallas sizes and B = 4096, and of K1 at
-   ndim 104 resident and streamed;
+   ndim 104 resident and streamed; K1's single-buffer streamed variant on
+   the 12x12 channel atmosphere (ndim 600, the benchmark's frozen tensor):
+   one integrate of B = 4096 x 100 steps (its launch counted) and a forced
+   launch, each against the plain float64 version on 64 members, and its
+   time at B = 4096 beside its bound and the plain version's;
    launches that cannot run raising;
 13. the long-horizon climate gate: 4 MAOOAM attractor members from the
    port's native float64 oracle, 120,000 steps of dt 0.1 (a record every
@@ -1975,6 +1979,112 @@ def resolution_params(QgParams, ndim):
     return pars
 
 
+# the 12x12 channel atmosphere (ndim 600, 438,449 entries): the benchmark's
+# frozen tensor, past the two-buffer streamed K1's shared memory
+ATM600 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "portbench", "reference", "tensors", "atm600.npz")
+# K1's single-buffer variant against the plain float64 version at ndim 600
+# over 100 steps of dt 0.005: only the summation order differs, and these
+# steps grow its rounding little (at most 1e-15 of |x| <= 0.1 on the card)
+TOL600 = dict(rtol=1e-12, atol=1e-13)
+
+
+def atmosphere600(card, dev, zero_counts, counts):
+    """12 (e'). K1's single-buffer streamed variant on the 12x12 channel
+    atmosphere (``ATM600``): the plan's and the route's choice; one
+    ``RungeKuttaIntegrator.integrate`` of B = 4096 x 100 steps of dt 0.005
+    (a record every 10), its launches counted from 0, and a forced launch
+    (a record every 7), each held against the plain float64 version on 64
+    members at ``TOL600``; then the variant timed at B = 4096 x 100 steps
+    (better of two) beside its bound and the plain version, which runs in
+    blocks of 512 members (all 4096 at once would gather 34 GB an operand).
+    ``zero_counts`` and ``counts`` are phase 12's.  Returns the numbers and
+    the main path's launches, by kernel."""
+    import torch
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+    from qgs_tpu_torch.integrators.rk import (fused_route, rk4_tableau,
+                                              time_grid)
+    from qgs_tpu_torch.ops import fused_rk4
+    from qgs_tpu_torch.ops.contraction import Tendency
+
+    with np.load(ATM600, allow_pickle=False) as z:
+        coords, data, shape = z["coords"], z["data"], tuple(z["shape"])
+    f = Tendency(coords, data, shape, device=dev)
+    B, n, steps, w, sample = 4096, shape[0] - 1, 100, 10, 64
+    y = torch.as_tensor(np.random.default_rng(600).random((B, n)) * 0.01,
+                        device=dev)
+    kernel = fused_rk4.launch_plan(f, fused_rk4.K1, torch.float64,
+                                   dev).kernel
+    routed = getattr(fused_route(f, y, rk4_tableau()), "name", None)
+    if kernel != "streamed_1buf" or not routed:
+        fail(f"ndim {n}: the plan takes {kernel}, fused_route {routed}; "
+             "expected the single-buffer streamed K1")
+
+    integrator = RungeKuttaIntegrator()
+    integrator.set_func(f)
+    torch.cuda.synchronize()
+    zero_counts()
+    fused_rk4.launches_1buf = 0
+    t0 = time.perf_counter()
+    integrator.integrate(0., 0.5, 0.005, ic=y.cpu().numpy(), write_steps=w)
+    _, traj = integrator.get_trajectories()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = dict(counts(), rk4_streamed_1buf=fused_rk4.launches_1buf)
+    if got != {k: int(k in ("rk4_streamed", "rk4_streamed_1buf"))
+               for k in got}:
+        fail(f"ndim {n} integrate: launches {got}; expected one launch of "
+             "the single-buffer streamed K1")
+    dts = torch.as_tensor(np.diff(time_grid(0., 0.5, 0.005)), device=dev)
+    if (len(dts) != steps or tuple(traj.shape) != (B, n, steps // w + 1)
+            or not torch.isfinite(traj).all()):
+        fail(f"ndim {n} integrate: {len(dts)} steps, trajectory shape "
+             f"{tuple(traj.shape)}, finite {bool(torch.isfinite(traj).all())}")
+    y64 = y[:sample]
+    _, rr = fused_rk4.fused_rk4_reference(f, y64, dts, w)
+    ref = torch.movedim(torch.cat([y64[None], rr]), 0, -1)
+    errs = [check_close(f"[12] ndim {n} float64 integrate B={B} x {steps} "
+                        f"steps, members 0-{sample - 1}, all records, vs "
+                        "plain f64", traj[:sample], ref, TOL600)]
+    yk, rk = fused_rk4.K1.launch(f, y64, dts, 7, "streamed_1buf")
+    yr, rr = fused_rk4.fused_rk4_reference(f, y64, dts, 7)
+    errs += [check_close(f"[12] single-buffer streamed K1 f64 ndim {n} B="
+                         f"{sample} {steps} steps final vs plain f64", yk, yr,
+                         TOL600),
+             check_close(f"[12] single-buffer streamed K1 f64 ndim {n} B="
+                         f"{sample} records every 7 vs plain f64", rk, rr,
+                         TOL600)]
+    del traj, ref, rr, rk
+
+    d = torch.full((steps,), 0.005, dtype=torch.float64, device=dev)
+    before = fused_rk4.launches_1buf
+    ms = best_ms(lambda: fused_rk4.fused_rk4(f, y, d))
+    if fused_rk4.launches_1buf - before != 3:
+        fail(f"ndim {n}: {fused_rk4.launches_1buf - before} timed launches "
+             "of the single-buffer streamed K1, expected 3")
+    plain_ms = cuda_ms(lambda: [fused_rk4.fused_rk4_reference(f, part, d)
+                                for part in y.split(512)])
+    b_ms, b_by = bound(*rk4_work(B, n, coords, steps, 8), PEAK_FLOPS["f64"])
+    torch.cuda.empty_cache()
+    out = {"shape": f"B={B} n={n} steps={steps} float64, "
+                    f"G={fused_rk4.K1.groups}",
+           "kernel": kernel, "fused_route": routed,
+           "smem_bytes": fused_rk4.streamed_smem_bytes(n + 1,
+                                                       fused_rk4.K1.groups,
+                                                       torch.float64, 1),
+           "integrate_s": secs, "traj_steps_per_s": B * steps / secs,
+           "launches": got, "max_abs_err_vs_plain_f64": errs[0],
+           "forced_max_abs_err": max(errs[1:]), "max_abs_err": max(errs),
+           "ms": ms, "plain_ms": plain_ms, "plain_block": 512,
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+    print(f"[12] single-buffer streamed K1 ndim {n} B={B} x {steps} steps: "
+          f"integrate {secs * 1e3:.3f} ms, launches {got}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms (blocks of 512), bound "
+          f"{b_ms:.3f} ms ({b_by}), share {b_ms / ms:.4f}; {card}",
+          flush=True)
+    return out, {"rk4_streamed_1buf": got["rk4_streamed_1buf"]}
+
+
 def large_models_phase(card, dev):
     """12. Models past one block's shared memory: (a) the Python twins of
     the launchers' shared-memory formulas (``fused_rk4.smem_bytes``,
@@ -2006,9 +2116,11 @@ def large_models_phase(card, dev):
     bound; the float32 kernel's gap to plain float64 every 100 of 1000
     steps; the
     host time of the size check on MAOOAM-36 against ``group_layout``'s;
+    (e') K1's single-buffer streamed variant at ndim 600
+    (:func:`atmosphere600`);
     (f) forced launches of the resident kernels where they do not fit,
-    and launches of a synthetic tensor past both kernels' limits (n1 =
-    600, float64 and twofloat), raising.  Checks ``fail`` the run.
+    and launches of a synthetic tensor past every kernel's limit (n1 =
+    845, float64 and twofloat), raising.  Checks ``fail`` the run.
     Returns the numbers and the launches of the paths, by kernel."""
     import torch
     from qgs_tpu_torch.params.params import QgParams
@@ -2064,6 +2176,12 @@ def large_models_phase(card, dev):
             "rk4_streamed_f32": (
                 fused_rk4.streamed_smem_bytes(n1, G, torch.float32),
                 lib.qgs_rk4_streamed_smem_bytes(n1, G, 0)),
+            "rk4_streamed_1buf_f64": (
+                fused_rk4.streamed_smem_bytes(n1, G, torch.float64, 1),
+                lib.qgs_rk4_streamed_1buf_smem_bytes(n1, G, 1)),
+            "rk4_streamed_1buf_f32": (
+                fused_rk4.streamed_smem_bytes(n1, G, torch.float32, 1),
+                lib.qgs_rk4_streamed_1buf_smem_bytes(n1, G, 0)),
             "rk4_df_streamed": (fused_df_rk4.df_streamed_smem_bytes(n1, G),
                                 lib.qgs_rk4_df_streamed_smem_bytes(n1, G))}
         for name, (py, c) in twins.items():
@@ -2436,16 +2554,21 @@ def large_models_phase(card, dev):
     print(f"[12] host time a call on ndim 36: launch_plan {fits_us:.1f} us,"
           f" group_layout {layout_us:.1f} us; {card}", flush=True)
 
+    out["k1_1buf"], launches_1buf = atmosphere600(card, dev, zero_counts,
+                                                  counts)
+    for k, v in launches_1buf.items():
+        launches[k] = launches.get(k, 0) + v
+
     # -- f) launches that cannot run raise ---------------------------------
     before = counts()
-    n1 = 600                      # past the streamed kernels' float64 limit
+    n1 = 845                      # past every kernel's float64 limit
     i = np.arange(1, n1)
     coords = np.stack([i, i, np.zeros_like(i)])
     big = from_numpy(coords, np.full(n1 - 1, -0.01), (n1,) * 3,
                      torch.float64, dev)
     big_df = DfTendency(coords, np.full(n1 - 1, -0.01), (n1,) * 3,
                         device=dev)
-    y600 = torch.zeros((32, n1 - 1), dtype=torch.float64, device=dev)
+    y845 = torch.zeros((32, n1 - 1), dtype=torch.float64, device=dev)
     ydf = df_from_f64(yb[:32].contiguous())
     fdf104 = DfTendency(f104.coords, f104.data, f104.shape, device=dev)
     y228 = torch.zeros((32, 228), dtype=torch.float64, device=dev)
@@ -2456,13 +2579,17 @@ def large_models_phase(card, dev):
             ("resident K1 f64 ndim 228", lambda: fused_rk4.K1.launch(
                 f228, y228, dts_b[:4], kernel="resident"),
              "rk4_fused launch failed"),
-            ("K1 f64 n1 600", lambda: fused_rk4.fused_rk4(
-                big, y600, dts_b[:4]), "neither the resident"),
-            ("K2 n1 600", lambda: fused_df_rk4.fused_df_rk4(
-                big_df, *df_from_f64(y600), dts_b[:4]), "neither the resident"),
-            ("streamed K1 f64 n1 600", lambda: fused_rk4.K1.launch(
-                big, y600, dts_b[:4], kernel="streamed"),
-             "rk4_streamed launch failed")):
+            ("K1 f64 n1 845", lambda: fused_rk4.fused_rk4(
+                big, y845, dts_b[:4]), "neither the resident"),
+            ("K2 n1 845", lambda: fused_df_rk4.fused_df_rk4(
+                big_df, *df_from_f64(y845), dts_b[:4]), "neither the resident"),
+            ("streamed K1 f64 n1 845", lambda: fused_rk4.K1.launch(
+                big, y845, dts_b[:4], kernel="streamed"),
+             "rk4_streamed launch failed"),
+            ("single-buffer streamed K1 f64 n1 845",
+             lambda: fused_rk4.K1.launch(big, y845, dts_b[:4],
+                                         kernel="streamed_1buf"),
+             "rk4_streamed_1buf launch failed")):
         try:
             call()
         except RuntimeError as err:
@@ -2473,7 +2600,7 @@ def large_models_phase(card, dev):
             fail(f"a direct {name} launch did not raise")
     if counts() != before:
         fail("a refused launch was counted")
-    if fused_route(big, y600, rk4_tableau()):
+    if fused_route(big, y845, rk4_tableau()):
         fail("fused_route sends a tensor past both kernels to a kernel")
     out["phase_s"] = time.perf_counter() - start
     out["launches"] = launches
@@ -3076,6 +3203,25 @@ def main():
         })
     kernels[2]["f32_max_abs_err"] = \
         large["streamed_max_abs_err"]["rk4_streamed_f32"]
+    one_buffer = large["k1_1buf"]
+    kernels.append({
+        "name": "rk4_streamed_1buf",
+        "route": "cuda",
+        "source": "qgs_tpu_torch/csrc/rk4_streamed.cu",
+        "replaces": "qgs_tpu/ops/pallas_kernels.py:210",
+        # phase 12's integrate at ndim 600 (launches_streamed counts it too)
+        "launches": large_launches["rk4_streamed_1buf"],
+        "large_models_launches": large_launches["rk4_streamed_1buf"],
+        "max_abs_err": one_buffer["max_abs_err"],
+        "ms": one_buffer["ms"],
+        "plain_ms": one_buffer["plain_ms"],
+        "bound_ms": one_buffer["bound_ms"],
+        "bound_by": one_buffer["bound_by"],
+        "share_of_bound": one_buffer["share_of_bound"],
+        "library_ms": None,
+        "shape": one_buffer["shape"],
+        "card": card,
+    })
     k5_t4 = rank5["t4"]["k5_B4096_500_steps"]
     kernels.append({
         "name": "rk4_quartic",

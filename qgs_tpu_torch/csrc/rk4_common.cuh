@@ -26,11 +26,14 @@
 // What serves a set of 32 trajectories is the Warp type's Block, a type of
 // static hooks: kBlocks, the blocks that split the set's rows (1 for a
 // block of its own, OneBlock; C for a thread-block cluster of the streamed
-// kernel, rk4_streamed.cu); rank(), this block's place among them; tile(),
-// the set's index; sync(), the stage barrier; put(x, i, v), a row's next
-// stage input into every block's copy of it.  The state rows a block loads
-// into sy and writes out are those of its rank: rows rank * G + w + m *
-// kBlocks * G of warp w.
+// kernel, rk4_streamed.cu); kInputs, the stage inputs a block keeps in
+// shared memory (2, xa and xb; 1 for the streamed kernel's single-buffer
+// variant, whose warps write a stage's output to device memory and land it
+// in xa after the barrier, Warp::land); rank(), this block's place among
+// them; tile(), the set's index; sync(), the stage barrier; put(x, i, v), a
+// row's next stage input into every block's copy of it.  The state rows a
+// block loads into sy and writes out are those of its rank: rows rank * G +
+// w + m * kBlocks * G of warp w.
 //
 // The RK4 combine follows qgs_tpu.integrators.rk.make_rk_step term by term:
 // stage inputs y + (dt*a)*k, and y_new = (((y + (dt/6)k1) + (dt/3)k2) +
@@ -59,6 +62,7 @@ __device__ __forceinline__ float rec_value(int4 raw, float) {
 // kernels, and the streamed one without a cluster).
 struct OneBlock {
   static constexpr int kBlocks = 1;
+  static constexpr int kInputs = 2;
   static __device__ __forceinline__ int rank() { return 0; }
   static __device__ __forceinline__ int tile() { return blockIdx.x; }
   static __device__ __forceinline__ void sync() { __syncthreads(); }
@@ -115,12 +119,28 @@ __device__ __forceinline__ void combine(int o, T k, T pa, T pb,
   }
 }
 
+// Stage STAGE of a step: warp.template stage<STAGE>(x, xo, c_acc, c_x)
+// runs it on this warp's rows, then the block's barrier.  Where the block
+// keeps one stage input (Block::kInputs == 1), the warp wrote the stage's
+// output to device memory: warp.land() copies it into the stage input,
+// behind a second barrier.
+template <int STAGE, typename Warp, typename T>
+__device__ __forceinline__ void rk4_stage(Warp& warp, const T* x, T* xo,
+                                          T c_acc, T c_x) {
+  using Block = typename Warp::Block;
+  warp.template stage<STAGE>(x, xo, c_acc, c_x);
+  Block::sync();
+  if constexpr (Block::kInputs == 1) {
+    warp.land();
+    Block::sync();
+  }
+}
+
 // n_steps RK4 steps of a block whose state is loaded (load_state) and
-// ordered by Block::sync(): warp.template stage<S>(x, xo, c_acc, c_x) runs
-// stage S of this warp's rows.  Records this block's rows every write_every
-// steps, then stores them as the final state into y: from sy, or, where
-// blocks share a set, from the stage input xa (after stage 3 it holds the
-// new state of every row in every block).
+// ordered by Block::sync(), each stage by rk4_stage.  Records this block's
+// rows every write_every steps, then stores them as the final state into
+// y: from sy, or, where blocks share a set, from the stage input xa (after
+// stage 3 it holds the new state of every row in every block).
 template <typename T, typename Warp>
 __device__ __forceinline__ void rk4_steps(Warp& warp, T* xa, T* xb,
                                           const T* sy, T* y, int B, int n,
@@ -142,14 +162,10 @@ __device__ __forceinline__ void rk4_steps(Warp& warp, T* xa, T* xb,
     const T w1 = dt * T(1.0 / 6.0);          // dt * b[0] = dt * b[3]
     const T w2 = dt * T(1.0 / 3.0);          // dt * b[1] = dt * b[2]
 
-    warp.template stage<0>(xa, xb, w1, h);      // k1
-    Block::sync();
-    warp.template stage<1>(xb, xa, w2, h);      // k2
-    Block::sync();
-    warp.template stage<2>(xa, xb, w2, dt);     // k3
-    Block::sync();
-    warp.template stage<3>(xb, xa, w1, T(0));   // k4 -> y, xa
-    Block::sync();
+    rk4_stage<0>(warp, xa, xb, w1, h);          // k1
+    rk4_stage<1>(warp, xb, xa, w2, h);          // k2
+    rk4_stage<2>(warp, xa, xb, w2, dt);         // k3
+    rk4_stage<3>(warp, xb, xa, w1, T(0));       // k4 -> y, xa
 
     if (write_every > 0 && (step + 1) % write_every == 0) {
       if (live) {

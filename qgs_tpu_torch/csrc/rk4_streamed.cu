@@ -31,6 +31,16 @@
 //     row's y / accumulator when the row starts, so the L2 round trip
 //     overlaps the row's chunks.  Shared memory is then 2 n1 32
 //     sizeof(T) bytes plus the rings: double reaches ndim 421, float 843;
+//   * past that, the single-buffer variant (rk4_streamed_kernel_1buf)
+//     keeps only xa on chip: a row's next stage input goes to a third slot
+//     of the scratch, xn, in the same layout (32 lanes of a row at a time),
+//     and after the stage's barrier the block copies xn into xa and syncs
+//     again (OneBuffer, OneBufferWarp).  n1 32 sizeof(T) bytes plus the
+//     rings: double reaches ndim 843 (the qgs atmosphere's 12x12 channel,
+//     ndim 600, takes 170,240 bytes), float 1687.  The copy is n 32
+//     sizeof(T) bytes a block a stage (154 KB at ndim 600 in double, from
+//     L2), and every row's sum and combine are the two-buffer kernel's, so
+//     the two give the same bits wherever both run.  It takes no cluster;
 //   * the rest is K1's design (rk4_common.cuh): a block of 32 trajectories
 //     with G warps (G in 1, 2, 4, 8), warp w walking group w's rows; chunks
 //     of two entries of one row into two partial sums; the row's sum
@@ -78,6 +88,11 @@
 //       write_every steps (none when write_every == 0);
 //   scratch (ceil(B / 32), 2, n, 32) T: y and the accumulator;
 //   cluster: C, the blocks of a set, each of groups / C warps (1 .. 8).
+//   qgs_rk4_streamed_1buf_f32 / qgs_rk4_streamed_1buf_f64(recs, lengths,
+//       groups, width, n1, y, B, dts, n_steps, write_every, records,
+//       scratch, stream): the single-buffer variant, the same arguments but
+//       the cluster; scratch (ceil(B / 32), 3, n, 32) T: y, the
+//       accumulator and the next stage input.
 //   qgs_rk4_streamed_max_clusters(n1, groups, is_double, cluster): the
 //       clusters of C blocks of groups warps the card holds at once.
 
@@ -95,9 +110,13 @@ using qgs_ring::Ring;
 
 constexpr int kMaxCluster = 8;      // the portable cluster sizes
 
+// The shared memory of a block: its warps' rings and `inputs` stage inputs
+// (2; 1 in the single-buffer variant).
 template <typename T>
-__host__ __device__ size_t streamed_smem_bytes(int n1, int groups) {
-  return qgs_ring::ring_bytes(groups) + sizeof(T) * (size_t)2 * n1 * kLanes;
+__host__ __device__ size_t streamed_smem_bytes(int n1, int groups,
+                                               int inputs = 2) {
+  return qgs_ring::ring_bytes(groups) +
+         sizeof(T) * (size_t)inputs * n1 * kLanes;
 }
 
 __device__ __forceinline__ void store_cluster(unsigned at, double v) {
@@ -113,6 +132,7 @@ __device__ __forceinline__ void store_cluster(unsigned at, float v) {
 template <int C>
 struct Cluster {
   static constexpr int kBlocks = C;
+  static constexpr int kInputs = 2;
   static __device__ __forceinline__ int rank() { return blockIdx.x % C; }
   static __device__ __forceinline__ int tile() { return blockIdx.x / C; }
   // Every write before it (shared, remote or device memory) by any block
@@ -188,14 +208,50 @@ struct Warp {
   }
 };
 
-template <typename T, int C>
-__global__ void __launch_bounds__(8 * kLanes)
-rk4_streamed_kernel(const int4* __restrict__ recs,
-                    const int* __restrict__ lengths, int width, int n1,
-                    T* __restrict__ y, int B, const double* __restrict__ dts,
-                    int n_steps, int write_every, T* __restrict__ records,
-                    T* __restrict__ scratch) {
-  using Block = std::conditional_t<C == 1, OneBlock, Cluster<C>>;
+// The hooks of the single-buffer variant's block: a block of its own
+// (OneBlock's) that keeps one stage input in shared memory.
+struct OneBuffer : OneBlock {
+  static constexpr int kInputs = 1;
+};
+
+// The single-buffer variant's warp: every stage reads the block's one
+// stage input xa, and a row's next stage input goes to xn, the set's third
+// slot of the scratch in device memory (row i + 1 of the stage input at row
+// i of the slot, 32 lanes at a time); after the stage's barrier land()
+// copies the slot into xa.  Whatever x and xo the step loop passes.
+template <typename T>
+struct OneBufferWarp : Warp<T, OneBuffer> {
+  T* xa;      // [n1][lane], shared
+  T* xn;      // [n][lane], device memory
+  int n;
+
+  template <int STAGE>
+  __device__ __forceinline__ void stage(const T*, T*, T c_acc, T c_x) {
+    // xn - kLanes lies in the accumulator's slot, just before xn: row
+    // i + 1 of it is row i of xn
+    Warp<T, OneBuffer>::template stage<STAGE>(xa, xn - kLanes, c_acc, c_x);
+  }
+
+  __device__ __forceinline__ void land() {
+    const int groups = blockDim.x / kLanes;
+    for (int i = threadIdx.x / kLanes; i < n; i += groups)
+      xa[(i + 1) * kLanes + this->t] = xn[i * kLanes + this->t];
+  }
+};
+
+// A block of the streamed kernel (Block: OneBlock, Cluster<C> or
+// OneBuffer).
+template <typename T, typename Block>
+__device__ __forceinline__ void streamed(const int4* __restrict__ recs,
+                                         const int* __restrict__ lengths,
+                                         int width, int n1,
+                                         T* __restrict__ y, int B,
+                                         const double* __restrict__ dts,
+                                         int n_steps, int write_every,
+                                         T* __restrict__ records,
+                                         T* __restrict__ scratch) {
+  constexpr bool kOneBuffer = Block::kInputs == 1;
+  constexpr int kScratchSlots = kOneBuffer ? 3 : 2;   // y, acc (, xn)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int groups = blockDim.x / kLanes;
   const int w = threadIdx.x / kLanes;
@@ -206,8 +262,9 @@ rk4_streamed_kernel(const int4* __restrict__ recs,
   int4* tiles = reinterpret_cast<int4*>(smem_raw);  // [warp][slot][record]
   T* xa = reinterpret_cast<T*>(
       tiles + groups * qgs_ring::kSlots * qgs_ring::kTile);  // [n1][lane]
-  T* xb = xa + n1 * kLanes;                                  // [n1][lane]
-  T* sy = scratch + (long long)Block::tile() * 2 * n * kLanes;  // [n][lane]
+  T* xb = kOneBuffer ? xa : xa + n1 * kLanes;                // [n1][lane]
+  T* sy = scratch +
+          (long long)Block::tile() * kScratchSlots * n * kLanes;  // [n][lane]
   T* acc = sy + n * kLanes;                                  // [n][lane]
 
   const int len = lengths[g];
@@ -218,10 +275,40 @@ rk4_streamed_kernel(const int4* __restrict__ recs,
   if (len > 0) ring.start();
 
   Warp<T, Block> warp{ring, len, sy, acc, t};
-  rk4_steps(warp, xa, xb, sy, y, B, n, dts, n_steps, write_every, records);
+  if constexpr (kOneBuffer) {
+    OneBufferWarp<T> one{warp, xa, acc + n * kLanes, n};
+    rk4_steps(one, xa, xb, sy, y, B, n, dts, n_steps, write_every, records);
+  } else {
+    rk4_steps(warp, xa, xb, sy, y, B, n, dts, n_steps, write_every, records);
+  }
   if (len > 0) ring.drain();
   // No put follows the last stage's barrier, so a block of a cluster may
   // leave once past it: nothing writes its shared memory any more.
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(8 * kLanes)
+rk4_streamed_kernel(const int4* __restrict__ recs,
+                    const int* __restrict__ lengths, int width, int n1,
+                    T* __restrict__ y, int B, const double* __restrict__ dts,
+                    int n_steps, int write_every, T* __restrict__ records,
+                    T* __restrict__ scratch) {
+  streamed<T, std::conditional_t<C == 1, OneBlock, Cluster<C>>>(
+      recs, lengths, width, n1, y, B, dts, n_steps, write_every, records,
+      scratch);
+}
+
+// The single-buffer variant, a kernel of its own name in a device trace.
+template <typename T>
+__global__ void __launch_bounds__(8 * kLanes)
+rk4_streamed_kernel_1buf(const int4* __restrict__ recs,
+                         const int* __restrict__ lengths, int width, int n1,
+                         T* __restrict__ y, int B,
+                         const double* __restrict__ dts, int n_steps,
+                         int write_every, T* __restrict__ records,
+                         T* __restrict__ scratch) {
+  streamed<T, OneBuffer>(recs, lengths, width, n1, y, B, dts, n_steps,
+                         write_every, records, scratch);
 }
 
 // One launch at the cluster size `cluster` (C, from 1 to kMaxCluster).
@@ -245,6 +332,22 @@ cudaError_t launch_streamed(int cluster, const void* recs,
                    streamed_smem_bytes<T>(n1, warps), warps, B, stream,
                    static_cast<const int4*>(recs), lengths, width, n1, y, B,
                    dts, n_steps, write_every, records, scratch);
+}
+
+// One launch of the single-buffer variant.
+template <typename T>
+cudaError_t launch_streamed_1buf(const void* recs, const int* lengths,
+                                 int groups, int width, int n1, T* y, int B,
+                                 const double* dts, int n_steps,
+                                 int write_every, T* records, T* scratch,
+                                 void* stream) {
+  const bool valid = groups >= 1 && groups <= 8 &&
+                     width >= qgs_ring::kTile &&
+                     width % qgs_ring::kTile == 0;
+  return launch(valid, rk4_streamed_kernel_1buf<T>,
+                streamed_smem_bytes<T>(n1, groups, 1), groups, B, stream,
+                static_cast<const int4*>(recs), lengths, width, n1, y, B,
+                dts, n_steps, write_every, records, scratch);
 }
 
 // The clusters of C blocks of `groups` warps (their shared memory at n1)
@@ -320,11 +423,38 @@ int qgs_rk4_streamed_f64(const void* recs, const int* lengths, int groups,
                                       records, scratch, stream);
 }
 
+int qgs_rk4_streamed_1buf_f32(const void* recs, const int* lengths,
+                              int groups, int width, int n1, float* y, int B,
+                              const double* dts, int n_steps,
+                              int write_every, float* records,
+                              float* scratch, void* stream) {
+  return (int)launch_streamed_1buf<float>(recs, lengths, groups, width, n1,
+                                          y, B, dts, n_steps, write_every,
+                                          records, scratch, stream);
+}
+
+int qgs_rk4_streamed_1buf_f64(const void* recs, const int* lengths,
+                              int groups, int width, int n1, double* y,
+                              int B, const double* dts, int n_steps,
+                              int write_every, double* records,
+                              double* scratch, void* stream) {
+  return (int)launch_streamed_1buf<double>(recs, lengths, groups, width, n1,
+                                           y, B, dts, n_steps, write_every,
+                                           records, scratch, stream);
+}
+
 // The shared memory a launch of the kernel needs (the wrapper's twin of
-// this formula decides the route before any launch).
+// this formula decides the route before any launch); the single-buffer
+// variant's.
 long long qgs_rk4_streamed_smem_bytes(int n1, int groups, int is_double) {
   return (long long)(is_double ? streamed_smem_bytes<double>(n1, groups)
                                : streamed_smem_bytes<float>(n1, groups));
+}
+
+long long qgs_rk4_streamed_1buf_smem_bytes(int n1, int groups,
+                                           int is_double) {
+  return (long long)(is_double ? streamed_smem_bytes<double>(n1, groups, 1)
+                               : streamed_smem_bytes<float>(n1, groups, 1));
 }
 
 // The clusters of `cluster` blocks of `groups` warps that the card holds

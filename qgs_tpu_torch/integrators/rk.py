@@ -270,12 +270,13 @@ def fused_route(f, y, tableau):
     on a float32 pair, K5 a rank-5 ``Tendency`` in float64 or float32),
     where its launch plan has a kernel
     (:func:`~qgs_tpu_torch.ops.fused_rk4.launch_plan`, built at the first
-    call and kept on ``f``, so that the launch reads the same choice).
-    Other tableaux, rank 5 in double-float, and models past the kernels'
-    limits (on an H100 from ndim 422 in float64 and twofloat, 844 in
-    float32; rank 5 past n1 = 256 or one block's shared memory) take the
-    plain step loop, as the JAX package's integrator takes for every
-    model."""
+    call and kept on ``f``, so that the launch reads the same choice: K1's
+    resident kernel, its streamed one, or past that the streamed one's
+    single-buffer variant).  Other tableaux, rank 5 in double-float, and
+    models past the kernels' limits (on an H100 from ndim 844 in float64,
+    1688 in float32 and 422 in twofloat; rank 5 past n1 = 256 or one
+    block's shared memory) take the plain step loop, as the JAX package's
+    integrator takes for every model."""
     y0 = y[0] if isinstance(y, tuple) else y
     if not (_is_rk4(*tableau) and y0.is_cuda):
         return None

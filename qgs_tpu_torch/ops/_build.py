@@ -49,15 +49,18 @@ def _nvcc():
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # the resident K1's and K5's launches; the streamed K1's add its scratch
-    # and its cluster size
+    # and its cluster size, the single-buffer variant's its scratch
     resident = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr, ptr]
     streamed = resident[:-1] + [ptr, i32, ptr]
+    one_buffer = resident[:-1] + [ptr, ptr]
     for name, argtypes in (
             ("qgs_rk4_fused_f32", resident), ("qgs_rk4_fused_f64", resident),
             ("qgs_rk4_quartic_f32", resident),
             ("qgs_rk4_quartic_f64", resident),
             ("qgs_rk4_streamed_f32", streamed),
             ("qgs_rk4_streamed_f64", streamed),
+            ("qgs_rk4_streamed_1buf_f32", one_buffer),
+            ("qgs_rk4_streamed_1buf_f64", one_buffer),
             ("qgs_rk4_streamed_max_clusters", [i32, i32, i32, i32])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -76,8 +79,10 @@ def _declare(lib):
     lib.qgs_rk4_fused_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_rk4_df_fused_smem_bytes.argtypes = [i32, i32, i32]
     lib.qgs_rk4_df_fused_smem_bytes.restype = ctypes.c_longlong
-    lib.qgs_rk4_streamed_smem_bytes.argtypes = [i32, i32, i32]
-    lib.qgs_rk4_streamed_smem_bytes.restype = ctypes.c_longlong
+    for name in ("qgs_rk4_streamed_smem_bytes",
+                 "qgs_rk4_streamed_1buf_smem_bytes"):
+        getattr(lib, name).argtypes = [i32, i32, i32]
+        getattr(lib, name).restype = ctypes.c_longlong
     lib.qgs_rk4_df_streamed_smem_bytes.argtypes = [i32, i32]
     lib.qgs_rk4_df_streamed_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_max_smem_optin.argtypes = [i32]

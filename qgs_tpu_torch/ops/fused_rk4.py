@@ -17,9 +17,11 @@ a tendency, and launches it.  There are three:
   keeps the records in device memory and only the two stage inputs on
   chip, and where the batch's blocks leave SMs idle it runs as
   thread-block clusters of ``c`` blocks, which split each block's rows
-  (:func:`pick_cluster`).  Launches count in :data:`launches` and
-  :data:`launches_streamed` (the clustered ones in
-  :data:`launches_clustered` too).
+  (:func:`pick_cluster`); past that its single-buffer variant keeps one
+  stage input on chip and the next in device memory.  Launches count in
+  :data:`launches` and :data:`launches_streamed` (the clustered ones in
+  :data:`launches_clustered` too, the single-buffer ones in
+  :data:`launches_1buf`).
 * :data:`~qgs_tpu_torch.ops.fused_df_rk4.DF` (K2): the same in
   double-float.
 * :data:`~qgs_tpu_torch.ops.fused_rk4_quartic.K5`: a rank-5 quartic
@@ -37,7 +39,8 @@ The choice of kernel is made in one place, a tendency's launch plan
 (:func:`launch_plan`, kept on its module and built once a key):
 ``"resident"`` where the resident layout's shared memory fits one block's
 opt-in limit of the card, else ``"streamed"`` where the streamed one does,
-else none (:func:`pick_kernel`).  From the plan's first launch of a kernel
+else ``"streamed_1buf"`` where the single-buffer variant's does, else none
+(:func:`pick_kernel`).  From the plan's first launch of a kernel
 on it also holds the family's layout and that kernel's device tables
 (:func:`plan_tables`; for the streamed K1 at ``c > 1`` the tables of a
 layout of ``c·G`` groups, and the card's occupancy, queried once a plan).
@@ -73,6 +76,7 @@ from qgs_tpu_torch.utils.profiling import span
 launches = 0             # resident K1 launches in this process
 launches_streamed = 0    # streamed K1 launches in this process
 launches_clustered = 0   # those of them as clusters of c > 1 blocks
+launches_1buf = 0        # those of them by the single-buffer variant
 layout_builds = 0        # group_layout calls in this process (K1's and K2's)
 plan_hits = 0            # launches whose tables a stored plan held (every
                          # family's: K1's, K2's and K5's)
@@ -80,6 +84,11 @@ plan_hits = 0            # launches whose tables a stored plan held (every
 _FNS = {torch.float32: "qgs_rk4_fused_f32", torch.float64: "qgs_rk4_fused_f64"}
 _STREAMED_FNS = {torch.float32: "qgs_rk4_streamed_f32",
                  torch.float64: "qgs_rk4_streamed_f64"}
+_1BUF_FNS = {torch.float32: "qgs_rk4_streamed_1buf_f32",
+             torch.float64: "qgs_rk4_streamed_1buf_f64"}
+# a family's kernels in the order a plan tries them, the sizes of its
+# layouts given in the same order (KernelFamily.sizes)
+KERNELS = ("resident", "streamed", "streamed_1buf")
 
 CHUNK = 2                # entries a chunk: the kernel's partial sums a row
 AHEAD = 1                # chunks the kernel reads past a group's end
@@ -237,26 +246,26 @@ def ring_bytes(groups):
     return groups * SLOTS * TILE * REC_BYTES
 
 
-def streamed_smem_bytes(n1, groups, dtype):
+def streamed_smem_bytes(n1, groups, dtype, inputs=2):
     """Shared memory of one block of the streamed kernel in ``dtype``
     (float32 or float64) over a tensor of first dimension ``n1``: the
-    rings, then the two stage inputs of ``n1`` rows of :data:`LANES` lanes
+    rings, then ``inputs`` stage inputs of ``n1`` rows of :data:`LANES`
+    lanes, two, or one in the single-buffer variant
     (``streamed_smem_bytes`` of ``csrc/rk4_streamed.cu``, which
     ``chip_smoke.py`` holds this against).  The records do not count: they
     stay in device memory."""
-    return ring_bytes(groups) + _itemsize(dtype) * 2 * int(n1) * LANES
+    return ring_bytes(groups) + _itemsize(dtype) * inputs * int(n1) * LANES
 
 
 def pick_kernel(sizes, limit):
-    """The kernel of a launch plan, from the shared memory of the resident
-    and the streamed layouts, ``sizes`` (None where the family has no such
-    kernel, or it cannot take the tensor): ``"resident"`` when the first
-    is at most ``limit`` bytes, else ``"streamed"`` when the second is,
-    else ``None``."""
-    if sizes[0] is not None and sizes[0] <= limit:
-        return "resident"
-    if sizes[1] is not None and sizes[1] <= limit:
-        return "streamed"
+    """The kernel of a launch plan, from the shared memory of the family's
+    layouts, ``sizes``, in the order of :data:`KERNELS` (the resident, the
+    streamed and the single-buffer streamed kernel's; None, or left out,
+    where the family has no such kernel or it cannot take the tensor): the
+    first kernel whose size is at most ``limit`` bytes, else ``None``."""
+    for kernel, size in zip(KERNELS, sizes):
+        if size is not None and size <= limit:
+            return kernel
     return None
 
 
@@ -433,18 +442,22 @@ def raise_on_error(err, kernel):
 
 def no_kernel_fits(name, sizes, n1, limit, device):
     """The error of a launch whose tendency fits none of its family's
-    kernels; ``sizes`` the resident and streamed layouts' bytes (the
-    second None for a family without a streamed kernel), ``limit`` the
+    kernels; ``sizes`` its layouts' bytes in the order of :data:`KERNELS`
+    (the second None for a family without a streamed kernel, the third
+    left out for one without the single-buffer variant), ``limit`` the
     shared memory a block on ``device``."""
     if sizes[1] is None:
         return RuntimeError(
             f"{name} cannot launch: its layout ({sizes[0]} B) of a tensor "
             f"of n1 = {n1} does not fit the {limit} B of shared memory a "
             f"block on {device}")
+    streamed = (f"the streamed one ({sizes[1]} B)" if len(sizes) < 3 else
+                f"the streamed ones ({sizes[1]} B; single-buffer "
+                f"{sizes[2]} B)")
     return RuntimeError(
         f"{name} cannot launch: neither the resident layout ({sizes[0]} B) "
-        f"nor the streamed one ({sizes[1]} B) of a tensor of n1 = {n1} fits "
-        f"the {limit} B of shared memory a block on {device}")
+        f"nor {streamed} of a tensor of n1 = {n1} fits the {limit} B of "
+        f"shared memory a block on {device}")
 
 
 def run_records(kernel, fn, tables, n1, y, dts, write_every, *extra):
@@ -481,8 +494,9 @@ class KernelFamily(NamedTuple):
     a ``module`` (its tensor of ``rank``) on states of ``dtypes`` (each part
     of a (hi, lo) pair where ``pair``) whose first dimension is at most
     ``max_n1``, with ``groups`` row groups (warps) a block.
-    ``sizes(n1, groups, width, dtype)`` gives the resident and the streamed
-    layouts' shared memory (None where there is no streamed kernel),
+    ``sizes(n1, groups, width, dtype)`` gives its layouts' shared memory
+    in the order of :data:`KERNELS` (None, or left out, for a kernel the
+    family lacks),
     ``layout(coords, data, shape, groups, rows)`` the family's layout,
     ``tables(layout, kernel, dtype)`` a kernel's tables of it (``(array,
     dtype)`` pairs in the launcher's order, dtype None for the array's
@@ -554,8 +568,8 @@ class KernelFamily(NamedTuple):
         """Advance the (B, n) state ``y`` (a (hi, lo) pair for a
         double-float family) by ``len(dts)`` RK4 steps of the tendency
         module ``f`` in one launch; ``dts`` (n_steps,) float64 on the
-        state's device.  ``kernel`` (``"resident"`` or ``"streamed"``)
-        forces a kernel, as the checks that hold the two bit for bit do;
+        state's device.  ``kernel`` (one of :data:`KERNELS`) forces a
+        kernel, as the checks that hold the kernels bit for bit do;
         by default the launch plan chooses (:func:`plan_tables`).
 
         Returns ``(y_final, records)`` (pairs for a pair), records
@@ -575,11 +589,12 @@ class KernelFamily(NamedTuple):
 
 def _k1_sizes(n1, groups, width, dtype):
     return (smem_bytes(n1, groups, width, dtype),
-            streamed_smem_bytes(n1, groups, dtype))
+            streamed_smem_bytes(n1, groups, dtype),
+            streamed_smem_bytes(n1, groups, dtype, inputs=1))
 
 
 def _k1_tables(layout, kernel, dtype):
-    records = streamed_records if kernel == "streamed" else resident_records
+    records = resident_records if kernel == "resident" else streamed_records
     return (layout.lengths, None), (records(layout, dtype), None)
 
 
@@ -599,17 +614,26 @@ def _k1_occupancy(n1, groups, dtype, device):
 
 
 def _k1_run(kernel, tables, n1, y, dts, write_every):
-    global launches, launches_streamed, launches_clustered
+    global launches, launches_streamed, launches_clustered, launches_1buf
     # a cluster's kernel is ("streamed", c), its tables c * G groups
     # (plan_tables)
     kernel, cluster = kernel if isinstance(kernel, tuple) else (kernel, 1)
+    blocks = -(-y.shape[0] // LANES)
     if kernel == "streamed":
-        scratch = y.new_empty((-(-y.shape[0] // LANES), 2, n1 - 1, LANES))
+        scratch = y.new_empty((blocks, 2, n1 - 1, LANES))
         out, records, launched = run_records(
             "rk4_streamed", _STREAMED_FNS[y.dtype], tables, n1, y, dts,
             write_every, scratch.data_ptr(), cluster)
         launches_streamed += launched
         launches_clustered += launched * (cluster > 1)
+    elif kernel == "streamed_1buf":
+        # y, the accumulator and the next stage input
+        scratch = y.new_empty((blocks, 3, n1 - 1, LANES))
+        out, records, launched = run_records(
+            "rk4_streamed_1buf", _1BUF_FNS[y.dtype], tables, n1, y, dts,
+            write_every, scratch.data_ptr())
+        launches_streamed += launched
+        launches_1buf += launched
     else:
         out, records, launched = run_records(
             "rk4_fused", _FNS[y.dtype], tables, n1, y, dts, write_every)
@@ -642,10 +666,10 @@ class LaunchPlan:
     """A tendency's launch plan for one kernel family, dtype, device,
     ``groups`` and shared-memory ``limit`` (:func:`launch_plan`): the
     arrays it was built from (``coords``, ``data``, ``shape``), its rows'
-    :class:`RowGroups` (``rows``), the resident and the streamed layouts'
-    bytes (``sizes``, both None past the family's ``max_n1``) and the
-    kernel the route takes (``kernel``: ``"resident"``, ``"streamed"`` or
-    ``None``, :func:`pick_kernel`); from the first launch of a kernel on
+    :class:`RowGroups` (``rows``), its layouts' bytes in the order of
+    :data:`KERNELS` (``sizes``, None past the family's ``max_n1``) and the
+    kernel the route takes (``kernel``: one of :data:`KERNELS` or ``None``,
+    :func:`pick_kernel`); from the first launch of a kernel on
     (:func:`plan_tables`), the family's layout (``layout``) and that
     kernel's device tables (``tables``, kernel -> tuple of tensors in the
     launcher's order; ``(kernel, c)`` for a cluster's); from the first

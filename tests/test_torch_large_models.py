@@ -310,8 +310,9 @@ def test_card_against_cpu(cuda_device, ndim, precision, kernels):
 @pytest.mark.cuda
 def test_direct_launches_that_do_not_fit_raise(cuda_device):
     """The resident kernels forced on layouts that do not fit raise, and a
-    tensor past the streamed kernels' float64 limit (n1 = 600) raises in
-    float64 and twofloat; no refused launch is counted."""
+    tensor past every kernel's float64 limit (n1 = 845, past K1's
+    single-buffer variant) raises in float64 and twofloat; no refused
+    launch is counted."""
     before = launch_counts()
     f104 = port_tendency("sweep", 104)
     fdf = DfTendency(f104.coords, f104.data, f104.shape, device=cuda_device)
@@ -326,9 +327,9 @@ def test_direct_launches_that_do_not_fit_raise(cuda_device):
     assert not resident(f228.batched, fused_rk4.K1, torch.float64, None)
     with pytest.raises(RuntimeError, match="rk4_fused launch failed"):
         fused_rk4.K1.launch(f228.batched, y, dts, kernel="resident")
-    big = synthetic(600, device=cuda_device)
+    big = synthetic(845, device=cuda_device)
     big_df = DfTendency(big.coords, big.data, big.shape, device=cuda_device)
-    y = torch.zeros((32, 599), dtype=torch.float64, device=cuda_device)
+    y = torch.zeros((32, 844), dtype=torch.float64, device=cuda_device)
     assert fused_rk4.launch_plan(big, fused_rk4.K1, torch.float64,
                                  cuda_device).kernel is None
     assert fused_route(big, y, rk4_tableau()) is None

@@ -8,12 +8,16 @@ only the two stage inputs on chip.  Checked here on the CPU:
 
 * the Python twins of the streamed kernels' shared-memory formulas at
   MAOOAM ndim 36, 104 and 228 (the resolution sweep's settings) for
-  float32, float64 and twofloat, against the H100's opt-in limit of
-  232,448 bytes passed explicitly, and the largest ndim each reaches;
-* the choice between the resident and the streamed kernel (a launch
-  plan's ``kernel``: ``resident``, ``streamed`` or neither, the plain step
-  loop) for each precision at those widths, and the family ``fused_route``
-  returns on a stand-in card state;
+  float32, float64 and twofloat, and of K1's single-buffer variant (one
+  stage input on chip) there and at ndim 600, against the H100's opt-in
+  limit of 232,448 bytes passed explicitly, and the largest ndim each
+  reaches;
+* the choice between the resident and the streamed kernel and, for K1,
+  the single-buffer variant (a launch plan's ``kernel``: ``resident``,
+  ``streamed``, ``streamed_1buf`` or none, the plain step loop) for each
+  precision at those widths and through a test's limit where only the
+  variant fits, and the family ``fused_route`` returns on a stand-in card
+  state;
 * the records the streamed kernels read (``streamed_records`` /
   ``df_streamed_records``: ``group_layout``'s tables as 16-byte records,
   padded to whole ring tiles), evaluated by their plain twins
@@ -34,9 +38,13 @@ only the two stage inputs on chip.  Checked here on the CPU:
 On the card (``cuda``-marked, skipped without one): the streamed kernels
 forced where the resident ones run too, bit for bit equal to them at ndim
 36 (B = 4097, a ragged last block) and 104; at ndim 228 against the plain
-version; and the clustered streamed K1 at every ``c`` bit for bit equal to
+version; the clustered streamed K1 at every ``c`` bit for bit equal to
 the launch without a cluster (ndim 228 at B = 1024, 1000 and 33, ndim 104
-forced), with its counters, and ``c = 1`` at B = 4097.
+forced), with its counters, and ``c = 1`` at B = 4097; the single-buffer
+variant forced at ndim 228 (B = 1000 x 23 steps, float64 and float32)
+bit for bit equal to the two-buffer kernel, with its counters; and the
+12x12 channel atmosphere (ndim 600, the benchmark's frozen tensor) on the
+route's single-buffer variant against the plain reference.
 """
 
 from fractions import Fraction
@@ -65,6 +73,10 @@ STREAMED_BYTES = {36: (35328, 25856, 35328), 104: (70144, 43264, 70144),
 KERNEL = {36: ("resident", "resident", "resident"),
           104: ("resident", "resident", "streamed"),
           228: ("streamed", "streamed", "streamed")}
+# ndim -> the single-buffer variant's bytes at G = 8: float64, float32
+# (the rings' 16,384 plus one stage input of n1 rows of 32 lanes)
+ONE_BUFFER_BYTES = {36: (25856, 21120), 104: (43264, 29824),
+                    228: (75008, 45696), 600: (170240, 93312)}
 
 
 def streamed_bytes(precision, n1, groups=8):
@@ -105,15 +117,49 @@ def test_streamed_twins_give_the_launchers_bytes(ndim, precision):
     assert fused_rk4.pick_kernel((None, want), want - 1) is None
 
 
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+@pytest.mark.parametrize("ndim", [36, 104, 228, 600])
+def test_one_buffer_twin_gives_the_launchers_bytes(ndim, precision):
+    """K1's single-buffer variant keeps one stage input on chip: the
+    rings and n1 rows of 32 lanes, the third of K1's layout sizes in a
+    plan (twofloat's family has no such kernel)."""
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    n1 = ndim + 1
+    want = ONE_BUFFER_BYTES[ndim][precision == "float32"]
+    assert fused_rk4.streamed_smem_bytes(n1, 8, dtype, inputs=1) == want
+    assert want == (fused_rk4.ring_bytes(8)
+                    + dtype.itemsize * n1 * fused_rk4.LANES)
+    f = synthetic(n1) if ndim == 600 else port_tendency("sweep", ndim)
+    assert plan(f, precision, H100_OPTIN).sizes[2] == want
+    assert len(plan(f, "twofloat", H100_OPTIN).sizes) == 2
+
+
 @pytest.mark.parametrize("precision, largest", [("float64", 421),
                                                 ("float32", 843),
                                                 ("twofloat", 421)])
 def test_streamed_limit_on_the_h100(precision, largest):
     """The twins' bytes and the launch plans' choice at the streamed
-    kernels' last width and one past it, on the H100."""
+    kernels' last width and one past it, on the H100: past it K1 takes its
+    single-buffer variant, K2 none."""
     assert streamed_bytes(precision, largest + 1) <= H100_OPTIN
     assert streamed_bytes(precision, largest + 2) > H100_OPTIN
     assert choose(synthetic(largest + 1), precision, H100_OPTIN) == "streamed"
+    past = None if precision == "twofloat" else "streamed_1buf"
+    assert choose(synthetic(largest + 2), precision, H100_OPTIN) == past
+
+
+@pytest.mark.parametrize("precision, largest", [("float64", 843),
+                                                ("float32", 1687)])
+def test_one_buffer_limit_on_the_h100(precision, largest):
+    """The single-buffer variant's bytes and the plans' choice at its
+    last width and one past it (none: the plain step loop)."""
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    assert fused_rk4.streamed_smem_bytes(largest + 1, 8, dtype,
+                                         inputs=1) <= H100_OPTIN
+    assert fused_rk4.streamed_smem_bytes(largest + 2, 8, dtype,
+                                         inputs=1) > H100_OPTIN
+    assert choose(synthetic(largest + 1), precision,
+                  H100_OPTIN) == "streamed_1buf"
     assert choose(synthetic(largest + 2), precision, H100_OPTIN) is None
 
 
@@ -139,17 +185,57 @@ def test_kernel_choice(ndim, monkeypatch):
 
 
 def test_kernel_choice_past_the_streamed_limit(monkeypatch):
-    """At n1 = 600 neither float64 kernel fits the H100 (the plain step
-    loop runs), while float32's stage inputs still fit the streamed one."""
+    """At n1 = 600 neither float64 kernel with two stage inputs fits the
+    H100, so float64 takes K1's single-buffer variant; float32's two stage
+    inputs still fit the streamed kernel; twofloat takes the plain step
+    loop."""
     monkeypatch.setattr(_build, "max_smem_optin", lambda device: H100_OPTIN)
     f = synthetic(600)
     fdf = DfTendency(f.coords, f.data, f.shape, device="cpu")
-    assert [choose(f, p) for p in PRECISIONS] == [None, "streamed", None]
-    assert fused_route(f, _OnCard(torch.float64), rk4_tableau()) is None
+    assert [choose(f, p) for p in PRECISIONS] == ["streamed_1buf",
+                                                  "streamed", None]
+    assert fused_route(f, _OnCard(torch.float64),
+                       rk4_tableau()) is fused_rk4.K1
     assert fused_route(f, _OnCard(torch.float32),
                        rk4_tableau()) is fused_rk4.K1
     assert fused_route(fdf, (_OnCard(torch.float32),) * 2,
                        rk4_tableau()) is None
+
+
+def test_plan_takes_the_one_buffer_variant_where_only_it_fits():
+    """Through a limit between the variant's bytes and the two-buffer
+    kernel's (ndim 228, float64 and float32) the plan takes the variant;
+    its tables are the streamed kernel's records, built once and served
+    as a plan hit after; it takes no cluster (the occupancy is not read),
+    and a forced cluster raises.  One byte less and no kernel fits."""
+    f = port_tendency("sweep", 228)
+    occupancy = _Occupancy(H100_LIKE)
+    k1 = fused_rk4.K1._replace(occupancy=occupancy)
+    for dtype in (torch.float64, torch.float32):
+        two = fused_rk4.streamed_smem_bytes(229, 8, dtype)
+        one = fused_rk4.streamed_smem_bytes(229, 8, dtype, inputs=1)
+        for limit in (one, two - 1):
+            plan = fused_rk4.launch_plan(f, k1, dtype, "cpu", limit=limit)
+            assert plan.kernel == "streamed_1buf"
+            hits = fused_rk4.plan_hits
+            for batch in (1024, 4096):
+                kernel, tables = fused_rk4.plan_tables(
+                    f, k1, None, dtype, "cpu", limit=limit, batch=batch)
+                assert kernel == "streamed_1buf" and plan.cluster == 1
+            assert fused_rk4.plan_hits - hits == 1
+            lay = fused_rk4.group_layout(f.coords, f.data, f.shape, 8)
+            assert torch.equal(tables[0], torch.as_tensor(lay.lengths))
+            assert torch.equal(tables[1], torch.as_tensor(
+                fused_rk4.streamed_records(lay, dtype)))
+            with pytest.raises(ValueError, match="no cluster of 2"):
+                fused_rk4.plan_tables(f, k1, None, dtype, "cpu",
+                                      limit=limit, _cluster=2)
+        assert fused_rk4.launch_plan(f, k1, dtype, "cpu",
+                                     limit=one - 1).kernel is None
+        with pytest.raises(RuntimeError, match="neither the resident.*"
+                           "single-buffer"):
+            fused_rk4.plan_tables(f, k1, None, dtype, "cpu", limit=one - 1)
+    assert occupancy.calls == 0
 
 
 _jax_f = {}
@@ -414,7 +500,8 @@ def test_cpu_states_run_the_plain_version_whatever_the_kernel():
     y = torch.as_tensor(np.random.default_rng(3).random((3, 599)) * 0.01)
     dts = torch.full((4,), 0.1, dtype=torch.float64)
     before = (fused_rk4.launches, fused_rk4.launches_streamed,
-              fused_df_rk4.launches, fused_df_rk4.launches_streamed)
+              fused_rk4.launches_1buf, fused_df_rk4.launches,
+              fused_df_rk4.launches_streamed)
     want, _ = fused_rk4.fused_rk4_reference(f, y, dts)
     want_df, _ = fused_df_rk4.fused_df_rk4_reference(fdf, *df_from_f64(y),
                                                      dts)
@@ -422,12 +509,13 @@ def test_cpu_states_run_the_plain_version_whatever_the_kernel():
              fused_df_rk4.fused_df_rk4(fdf, *df_from_f64(y), dts))]
     runs += [(fused_rk4.K1.launch(f, y, dts, kernel=kernel),
               fused_df_rk4.DF.launch(fdf, df_from_f64(y), dts, kernel=kernel))
-             for kernel in ("resident", "streamed")]
+             for kernel in ("resident", "streamed", "streamed_1buf")]
     for (got, _), (got_df, _) in runs:
         assert torch.equal(got, want)
         assert all(torch.equal(a, b) for a, b in zip(got_df, want_df))
     assert before == (fused_rk4.launches, fused_rk4.launches_streamed,
-                      fused_df_rk4.launches, fused_df_rk4.launches_streamed)
+                      fused_rk4.launches_1buf, fused_df_rk4.launches,
+                      fused_df_rk4.launches_streamed)
 
 
 # -- on the card ------------------------------------------------------------
@@ -536,3 +624,58 @@ def test_clustered_equals_one_block(cuda_device, ndim, B, precision):
     assert fused_rk4.launches_streamed - counts[0] == launched
     assert (fused_rk4.launches_clustered - counts[1]
             == launched - 2 + (plan.cluster > 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+def test_one_buffer_equals_two_buffers(cuda_device, precision):
+    """K1's single-buffer variant forced where the two-buffer streamed
+    kernel runs too (ndim 228, B = 1000 x 23 steps): the final state and
+    the records bit for bit equal; it counts in ``launches_streamed`` and
+    in ``launches_1buf``, and takes no cluster."""
+    fc = port_tendency("sweep", 228)
+    dtype = torch.float32 if precision == "float32" else torch.float64
+    f = Tendency(fc.coords, fc.data, fc.shape, dtype=dtype,
+                 device=cuda_device)
+    y = torch.as_tensor(states(228, 1000), dtype=dtype, device=cuda_device)
+    dts = torch.full((23,), 0.1, dtype=torch.float64, device=cuda_device)
+    want = at_cluster(f, y, dts, 7, 1)
+    counts = (fused_rk4.launches_streamed, fused_rk4.launches_1buf,
+              fused_rk4.launches_clustered)
+    got = fused_rk4.K1.launch(f, y, dts, 7, "streamed_1buf")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (fused_rk4.launches_streamed, fused_rk4.launches_1buf,
+            fused_rk4.launches_clustered) == (counts[0] + 1, counts[1] + 1,
+                                              counts[2])
+
+
+@pytest.mark.cuda
+def test_atmosphere_600_on_the_one_buffer_variant(cuda_device):
+    """The 12x12 channel atmosphere (ndim 600, the benchmark's frozen
+    tensor) integrated on the normal path, 8 members x 100 RK4 steps of dt
+    0.005: one launch of the single-buffer variant, held against the
+    plain float64 reference (``portbench/reference/qg.py``) at 1e-10 of
+    each variable's largest value: the two sum each row in another order,
+    and 100 steps grow that rounding far less than this."""
+    from portbench.harness import checks, loader
+    from portbench.reference import qg
+    from qgs_tpu_torch.integrators.integrator import RungeKuttaIntegrator
+
+    frozen = qg.load_tensor(loader.config("atm600"))
+    f = Tendency(frozen.coords, frozen.data, frozen.shape,
+                 device=cuda_device)
+    assert choose(f, "float64") == "streamed_1buf"
+    ic = np.random.default_rng(600).random((8, 600)) * 0.01
+    counts = (fused_rk4.launches_streamed, fused_rk4.launches_1buf)
+    integrator = RungeKuttaIntegrator()
+    integrator.set_func(f)
+    integrator.integrate(0., 0.5, 0.005, ic=ic, write_steps=10)
+    _, traj = integrator.get_trajectories()
+    torch.cuda.synchronize()
+    assert (fused_rk4.launches_streamed - counts[0],
+            fused_rk4.launches_1buf - counts[1]) == (1, 1)
+    ref = qg.integrate(qg.Quadratic(frozen, torch.float64, cuda_device), ic,
+                       0., 0.5, 0.005, 10)
+    assert traj.shape == ref.shape == (8, 600, 11)
+    assert checks.var_gap(traj, ref) <= 1e-10
