@@ -39,10 +39,13 @@ fused double-float RK4 kernel -> ``get_trajectories``.  Phases:
    (B = 4096, 1000 steps) and twofloat (B = 1024, 300 steps) against the
    plain float64 version, the card against the CPU (B = 8, 300 steps), the
    float64 integrations through K5 (``csrc/rk4_fused.cu``: one launch a
-   card each) and no launch of either rank-3 kernel; K5 at the T4 cell's
-   call (B = 4096, 500 steps) against its plain version, timed beside its
-   bound and the plain version's time, in float64 at G = 8 and 16 in
-   turns, and in float32 against the plain float32 version;
+   card each, over the layout its launch plan takes, each counted in
+   ``launches_paired`` too where that is the paired one) and no launch of
+   either rank-3 kernel; K5 at the T4 cell's call (B = 4096, 500 steps),
+   each of its two layouts (four gathers an entry, or two over pair
+   products) against its plain version, timed beside its bound and the
+   plain version's time, in float64 at G = 8 and 16 in turns, and in
+   float32 against the plain float32 version;
    ``initialize`` without ``number_of_dimensions``; times and peak memory of the rank-5 TGLS step
    (B = 256) and of a T4 Benettin window (B = 16); then ``QgsModel`` of
    MAOOAM saved and loaded, integrated (one K1 launch) and fed to
@@ -148,6 +151,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 TOL64 = dict(rtol=1e-9, atol=1e-11)    # float64: only the summation order
                                        # and FMA contraction differ
 TOL32 = dict(rtol=1e-4, atol=1e-6)     # float32 kernel vs float64 plain
+# K5's layouts: the four-gather one and the paired one (phase 7 times and
+# checks both; the launch plan takes one)
+K5_LAYOUTS = ("resident", "paired")
 # K5 in float32 against the plain float32 version, relative to the plain
 # float64 run's largest |value|: both round every operation to float32
 # (about 6e-8) in other orders (tests/test_torch_rk4_quartic.py, KERNEL_F32)
@@ -666,7 +672,7 @@ def rank5_phase(card, dev):
     from qgs_tpu_torch.integrators.statistics import TrajectoriesStatistics
     from qgs_tpu_torch.models.model import QgsModel
     from qgs_tpu_torch.models.tendencies import create_tendencies
-    from qgs_tpu_torch.ops import fused_df_rk4, fused_rk4
+    from qgs_tpu_torch.ops import _build, fused_df_rk4, fused_rk4
     from qgs_tpu_torch.ops import fused_rk4_quartic as k5
     from qgs_tpu_torch.ops.contraction import (Tendency, make_direct_tangent,
                                                make_tendency_fns)
@@ -678,13 +684,16 @@ def rank5_phase(card, dev):
     start = time.perf_counter()
     out = {"card": card}
     tab = rk4_tableau()
+    lib = _build.load_library()
 
     def counts():
         return {"rk4_fused": fused_rk4.launches,
                 "rk4_df_fused": fused_df_rk4.launches,
-                "rk4_quartic": k5.launches}
+                "rk4_quartic": k5.launches,
+                "rk4_paired": k5.launches_paired}
 
     fused_rk4.launches = fused_df_rk4.launches = k5.launches = 0
+    k5.launches_paired = 0
     for name, scheme in (("t4", dict(T4=True)),
                          ("dynT", dict(dynamic_T=True))):
         res = out[name] = {}
@@ -711,21 +720,30 @@ def rank5_phase(card, dev):
         print(f"[7] {name}: create_tendencies on the card in "
               f"{res['setup_s']:.3f} s; layout {res['layout']}", flush=True)
 
-        # float64, B=4096, 1000 steps, a record every 100
+        # float64, B=4096, 1000 steps, a record every 100: one K5 launch a
+        # card, over the layout its launch plan takes (the paired one counts
+        # in launches_paired too)
         ic = torch.as_tensor(near_ic(pars, 4096, 0), device=dev)
         integ = RungeKuttaIntegrator()
         integ.set_func(f)
         torch.cuda.synchronize()
-        k5.launches = 0
+        k5.launches = k5.launches_paired = 0
         t0 = time.perf_counter()
         integ.integrate(0., 100., 0.1, ic=ic, write_steps=100)
         times, traj = integ.get_trajectories()
         torch.cuda.synchronize()
         res["f64_B4096_1000_steps_s"] = s64 = time.perf_counter() - t0
         res["k5_launches"] = k5.launches
+        res["k5_paired_launches"] = k5.launches_paired
+        res["k5_layout"] = fused_rk4.launch_plan(f.batched, k5.K5,
+                                                 torch.float64, dev).kernel
         if k5.launches != torch.cuda.device_count():
             fail(f"{name}: the float64 integrate ran {k5.launches} K5 "
                  f"launches, not one a card")
+        if k5.launches_paired != k5.launches * (res["k5_layout"] == "paired"):
+            fail(f"{name}: the float64 integrate over the "
+                 f"{res['k5_layout']} layout counted {k5.launches_paired} of "
+                 f"its {k5.launches} K5 launches in launches_paired")
         if tuple(traj.shape) != (4096, n, 11) or not torch.isfinite(
                 traj).all() or len(times) != 11:
             fail(f"{name} float64 trajectory {tuple(traj.shape)}")
@@ -736,7 +754,9 @@ def rank5_phase(card, dev):
             "fused_rk4_reference", traj, torch.movedim(
                 torch.cat([ic[None], recs]), 0, -1), TOL64)
         print(f"[7] {name} float64 integrate B=4096, 1000 steps: {s64:.3f} s "
-              f"({4096 * 1000 / s64:.4g} traj-steps/s); {card}", flush=True)
+              f"({4096 * 1000 / s64:.4g} traj-steps/s; K5 over the "
+              f"{res['k5_layout']} layout, launches {k5.launches}, "
+              f"launches_paired {k5.launches_paired}); {card}", flush=True)
 
         # twofloat, B=1024, 300 steps, against the float64 run
         idf = RungeKuttaIntegrator(precision="twofloat")
@@ -815,66 +835,107 @@ def rank5_phase(card, dev):
               f"({b_by}), share {b_ms / ms:.5f}; {card}", flush=True)
 
         # K5 at the T4 cell's call, B=4096 x 500 steps of dt 0.01 with a
-        # record every 50: its time (better of two) at G = 8 and at K5's
-        # G = 16 in turns (a launch plan's tables at each), its bound, and
-        # the plain version's time (one run) and records, held at TOL64
+        # record every 50: the time (better of two) of each layout, the
+        # four-gather one ("resident") and the paired one, at G = 8 and at
+        # K5's G = 16 in turns (a launch plan's tables of each), their
+        # bound, and the plain version's time (one run) and records, each
+        # layout's forced launch held against them at TOL64
         dts500 = torch.full((500,), 0.01, dtype=torch.float64, device=dev)
-        tables = {g: fused_rk4.plan_tables(f.batched, k5.K5, None,
-                                           torch.float64, dev, g)[1]
-                  for g in (8, k5.K5.groups)}
-        per_g = {g: [] for g in tables}
-        for g in list(tables) + list(reversed(tables)):
-            per_g[g].append(best_ms(lambda: k5.K5.run(
-                "resident", tables[g], T.shape[0], yb, dts500, 50)))
         rule = k5.K5.groups
-        got = k5.fused_rk4_quartic(f.batched, yb, dts500, 50)
+        plan = fused_rk4.launch_plan(f.batched, k5.K5, torch.float64, dev)
+        npairs = k5.pair_count(T.coords, T.shape[0])
+        twins = dict(zip(k5.K5.kernels, plan.sizes))
+        smem = {kern: (twins[kern], c_formula) for kern, c_formula in (
+            ("resident", lib.qgs_rk4_fused_smem_bytes(
+                T.shape[0], rule, plan.rows.width, 1)),
+            ("paired", lib.qgs_rk4_paired_smem_bytes(
+                T.shape[0], npairs, rule, plan.rows.width, 1)))}
+        if any(twin != c for twin, c in smem.values()):
+            fail(f"{name}: K5's shared-memory twins {smem} differ from the "
+                 "kernel's formulas")
+        tables = {(kern, g): fused_rk4.plan_tables(
+            f.batched, k5.K5, kern, torch.float64, dev, g)[1]
+            for kern in K5_LAYOUTS for g in (8, rule)}
+        per_g = {f"{kern} G={g}": [] for kern, g in tables}
+        for key in list(tables) + list(reversed(tables)):
+            per_g[f"{key[0]} G={key[1]}"].append(best_ms(
+                lambda: k5.K5.run(key[0], tables[key], T.shape[0], yb,
+                                  dts500, 50)))
+        got = {kern: k5.K5.launch(f.batched, yb, dts500, 50, kernel=kern)
+               for kern in K5_LAYOUTS}
         plain = {}
         plain_ms = cuda_ms(lambda: plain.setdefault(
             "out", fused_rk4.fused_rk4_reference(f.batched, yb, dts500, 50)))
-        err = max(check_close(f"{name} K5 B=4096 500 steps vs plain {part}",
-                              a, b, TOL64)
-                  for part, a, b in zip(("final", "records"), got,
-                                        plain["out"]))
-        k_ms = min(per_g[rule])
         b_ms, b_by = bound(*rk4_work(4096, n, T.coords, 500, 8),
                            PEAK_FLOPS["f64"])
+        by_layout = {}
+        for kern in K5_LAYOUTS:
+            ms = min(per_g[f"{kern} G={rule}"])
+            by_layout[kern] = {
+                "ms": ms, "share_of_bound": b_ms / ms,
+                "max_abs_err": max(check_close(
+                    f"{name} K5 {kern} B=4096 500 steps vs plain {part}", a,
+                    b, TOL64) for part, a, b in zip(
+                        ("final", "records"), got[kern], plain["out"]))}
+        k_ms = by_layout[plan.kernel]["ms"]
         res["k5_B4096_500_steps"] = {
-            "ms": k_ms, "groups": rule, "ms_per_groups": per_g,
+            "ms": k_ms, "groups": rule, "layout": plan.kernel,
+            "pairs": npairs, "records": int(plan.rows.load.sum()),
+            "smem_bytes": {kern: v[0] for kern, v in smem.items()},
+            "ms_per_groups": {k: min(v) for k, v in per_g.items()},
+            "by_layout": by_layout,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "share_of_bound": b_ms / k_ms, "max_abs_err": err}
-        print(f"[7] {name} K5 B=4096 x 500 steps: {k_ms:.3f} ms at G={rule} "
-              f"({4096 * 500 / k_ms * 1e3:.4g} traj-steps/s; per G "
-              f"{per_g}), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), share {b_ms / k_ms:.4f}; {card}", flush=True)
+            "share_of_bound": b_ms / k_ms,
+            "max_abs_err": by_layout[plan.kernel]["max_abs_err"]}
+        print(f"[7] {name} K5 B=4096 x 500 steps: {k_ms:.3f} ms, the "
+              f"{plan.kernel} layout at G={rule} "
+              f"({4096 * 500 / k_ms * 1e3:.4g} traj-steps/s; "
+              f"{plan.rows.load.sum()} records, {npairs} pairs; per layout "
+              f"and G {res['k5_B4096_500_steps']['ms_per_groups']}), plain "
+              f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+              f"{b_ms / k_ms:.4f}; {card}", flush=True)
 
         # the same call in float32 (the route's other K5 instantiation),
-        # against the plain float32 version on the same inputs within
-        # K5_F32 of the plain float64 run's largest |value|
+        # each layout against the plain float32 version on the same inputs
+        # within K5_F32 of the plain float64 run's largest |value|
         scale = max(a.abs().max().item() for a in plain["out"])
-        del got, plain
+        del got, plain, tables
         f32 = Tendency(T.coords, T.data, T.shape, torch.float32, dev)
         y32 = yb.float()
-        ms32 = best_ms(lambda: k5.fused_rk4_quartic(f32, y32, dts500, 50))
-        got = k5.fused_rk4_quartic(f32, y32, dts500, 50)
+        layout32 = fused_rk4.launch_plan(f32, k5.K5, torch.float32,
+                                         dev).kernel
+        ms_layout32 = {kern: best_ms(lambda: k5.K5.launch(
+            f32, y32, dts500, 50, kernel=kern)) for kern in K5_LAYOUTS}
+        ms32 = ms_layout32[layout32]
         plain = {}
         plain32_ms = cuda_ms(lambda: plain.setdefault(
             "out", fused_rk4.fused_rk4_reference(f32, y32, dts500, 50)))
-        err32 = max(check_close(
-            f"{name} K5 float32 B=4096 500 steps vs plain float32 {part}",
-            a, b, dict(rtol=0, atol=K5_F32 * scale))
-            for part, a, b in zip(("final", "records"), got, plain["out"]))
         b_ms, b_by = bound(*rk4_work(4096, n, T.coords, 500, 4),
                            PEAK_FLOPS["f32"])
+        by_layout32 = {}
+        for kern in K5_LAYOUTS:
+            err = max(check_close(
+                f"{name} K5 {kern} float32 B=4096 500 steps vs plain float32 "
+                f"{part}", a, b, dict(rtol=0, atol=K5_F32 * scale))
+                for part, a, b in zip(("final", "records"), k5.K5.launch(
+                    f32, y32, dts500, 50, kernel=kern), plain["out"]))
+            by_layout32[kern] = {
+                "ms": ms_layout32[kern],
+                "share_of_bound": b_ms / ms_layout32[kern],
+                "max_abs_err": err, "err_of_scale": err / scale}
+        err32 = by_layout32[layout32]["max_abs_err"]
         res["k5_f32_B4096_500_steps"] = {
-            "ms": ms32, "plain_ms": plain32_ms, "bound_ms": b_ms,
+            "ms": ms32, "layout": layout32, "by_layout": by_layout32,
+            "plain_ms": plain32_ms, "bound_ms": b_ms,
             "bound_by": b_by, "share_of_bound": b_ms / ms32,
             "max_abs_err": err32, "err_of_scale": err32 / scale}
-        print(f"[7] {name} K5 float32 B=4096 x 500 steps: {ms32:.3f} ms "
-              f"({4096 * 500 / ms32 * 1e3:.4g} traj-steps/s), plain "
+        print(f"[7] {name} K5 float32 B=4096 x 500 steps: {ms32:.3f} ms, the "
+              f"{layout32} layout ({4096 * 500 / ms32 * 1e3:.4g} "
+              f"traj-steps/s; per layout {ms_layout32}), plain "
               f"{plain32_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), share "
               f"{b_ms / ms32:.4f}, gap {err32 / scale:.3e} of scale; {card}",
               flush=True)
-        del got, plain, f32, y32
+        del plain, f32, y32
 
         if name == "t4":
             # Benettin windows at B=16 (one substep, dt = mdt = 0.1)
@@ -924,10 +985,13 @@ def rank5_phase(card, dev):
         if integ.n_dim != n or not torch.isfinite(x).all():
             fail(f"{name}: initialize without number_of_dimensions")
 
-    # the rank-3 kernels across the whole phase; K5 in the two float64
-    # integrations alone (the timing launches above are not counted)
-    out["rank5_launches"] = dict(counts(), rk4_quartic=sum(
-        out[m]["k5_launches"] for m in ("t4", "dynT")))
+    # the rank-3 kernels across the whole phase; K5, and those of its
+    # launches over the paired layout, in the two float64 integrations
+    # alone (the timing launches above are not counted)
+    out["rank5_launches"] = dict(
+        counts(),
+        rk4_quartic=sum(out[m]["k5_launches"] for m in ("t4", "dynT")),
+        rk4_paired=sum(out[m]["k5_paired_launches"] for m in ("t4", "dynT")))
     print(f"[7] launches across the rank-5 runs: {out['rank5_launches']}",
           flush=True)
     if out["rank5_launches"]["rk4_fused"] or \
@@ -957,6 +1021,7 @@ def rank5_phase(card, dev):
     integ = RungeKuttaIntegrator()
     integ.set_func(model.f)
     fused_rk4.launches = fused_df_rk4.launches = k5.launches = 0
+    k5.launches_paired = 0
     integ.integrate(0., 100., 0.1, ic=ic, write_steps=10)
     out["qgs_model_launches"] = counts()
     _, traj = integ.get_trajectories()
@@ -969,7 +1034,8 @@ def rank5_phase(card, dev):
     print(f"[7] QgsModel(MAOOAM) saved, loaded, integrated: launches "
           f"{out['qgs_model_launches']}", flush=True)
     if out["qgs_model_launches"] != {"rk4_fused": torch.cuda.device_count(),
-                                     "rk4_df_fused": 0, "rk4_quartic": 0}:
+                                     "rk4_df_fused": 0, "rk4_quartic": 0,
+                                     "rk4_paired": 0}:
         fail("the loaded QgsModel did not run through one K1 launch a card")
     stats = TrajectoriesStatistics()
     stats.set_integrator(integ)
@@ -1862,7 +1928,9 @@ def compat_phase(f, qgt, card, dev):
 
 # the kernels each example launches on the card (the catalog of
 # qgs_tpu_torch/examples/__init__.py): each of its set at least once, no
-# other (an empty set: none; the host-only and tendency-call examples)
+# other (an empty set: none; the host-only and tendency-call examples);
+# "rk4_quartic" counts K5's launches over either layout, "rk4_paired" those
+# over the paired one
 EXAMPLE_KERNELS = {
     "rp_atmosphere": {"rk4_fused"}, "maooam_coupled": {"rk4_fused"},
     "ground_coupled": {"rk4_fused"},
@@ -1870,7 +1938,8 @@ EXAMPLE_KERNELS = {
     "external_solvers": {"rk4_fused"}, "lyapunov_exponents": {"rk4_fused"},
     "clv_walkthrough": {"rk4_fused"}, "ensemble_statistics": {"rk4_fused"},
     "distributed_ensembles": {"rk4_fused"},
-    "dynamic_temperature": {"rk4_quartic"}, "t4_radiation": {"rk4_quartic"},
+    "dynamic_temperature": {"rk4_quartic", "rk4_paired"},
+    "t4_radiation": {"rk4_quartic", "rk4_paired"},
     "diagnostics_tour": {"rk4_fused"},
     "kernel_selection": {"rk4_fused", "rk4_df_fused"},
     "custom_basis": set(), "symbolic_export": set(),
@@ -1897,7 +1966,8 @@ def examples_phase(card):
 
     start = time.perf_counter()
     out = {}
-    totals = {"rk4_fused": 0, "rk4_df_fused": 0, "rk4_quartic": 0}
+    totals = {"rk4_fused": 0, "rk4_df_fused": 0, "rk4_quartic": 0,
+              "rk4_paired": 0}
     with tempfile.TemporaryDirectory() as outdir:
         for name in examples.NAMES:
             mod = importlib.import_module(f"qgs_tpu_torch.examples.{name}")
@@ -1906,6 +1976,7 @@ def examples_phase(card):
                 kw["selftest"] = False
             torch.cuda.synchronize()
             fused_rk4.launches = fused_df_rk4.launches = k5.launches = 0
+            k5.launches_paired = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 got = mod.main(device="cuda", **kw)
@@ -1913,7 +1984,8 @@ def examples_phase(card):
             secs = time.perf_counter() - t0
             launches = {"rk4_fused": fused_rk4.launches,
                         "rk4_df_fused": fused_df_rk4.launches,
-                        "rk4_quartic": k5.launches}
+                        "rk4_quartic": k5.launches,
+                        "rk4_paired": k5.launches_paired}
             for k in totals:
                 totals[k] += launches[k]
             need = EXAMPLE_KERNELS[name]
@@ -3222,33 +3294,46 @@ def main():
         "shape": one_buffer["shape"],
         "card": card,
     })
+    # K5's two layouts, each its own kernel: the main path's launches
+    # (phase 7's two float64 integrations and the examples'; the timing
+    # launches are not counted) split by the paired counter, each layout's
+    # own time, bound and error at the T4 cell's call
     k5_t4 = rank5["t4"]["k5_B4096_500_steps"]
-    kernels.append({
-        "name": "rk4_quartic",
-        "route": "cuda",
-        "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
-        "replaces": None,
-        "launches": (rank5["rank5_launches"]["rk4_quartic"]
-                     + examples_launches["rk4_quartic"]),
-        # the main path's launches only: phase 7's two float64 integrations
-        # and the examples' (the timing launches are not counted)
-        "rank5_launches": rank5["rank5_launches"]["rk4_quartic"],
-        "examples_launches": examples_launches["rk4_quartic"],
-        "max_abs_err": max(rank5[m]["k5_B4096_500_steps"]["max_abs_err"]
-                           for m in ("t4", "dynT")),
-        "ms": k5_t4["ms"],
-        "plain_ms": k5_t4["plain_ms"],
-        "bound_ms": k5_t4["bound_ms"],
-        "bound_by": k5_t4["bound_by"],
-        "share_of_bound": k5_t4["share_of_bound"],
-        "library_ms": None,
-        "shape": f"T4 B=4096 n=38 steps=500 float64, G={k5_t4['groups']}",
-        "ms_per_groups": k5_t4["ms_per_groups"],
-        "f32": rank5["t4"]["k5_f32_B4096_500_steps"],
-        "dynT": rank5["dynT"]["k5_B4096_500_steps"],
-        "dynT_f32": rank5["dynT"]["k5_f32_B4096_500_steps"],
-        "card": card,
-    })
+    paired = {"rank5": rank5["rank5_launches"]["rk4_paired"],
+              "examples": examples_launches["rk4_paired"]}
+    k5_launches = {"rank5": rank5["rank5_launches"]["rk4_quartic"],
+                   "examples": examples_launches["rk4_quartic"]}
+    for kern, kname, main_launches in (
+            ("resident", "rk4_quartic",
+             {k: v - paired[k] for k, v in k5_launches.items()}),
+            ("paired", "rk4_paired", paired)):
+        t4 = k5_t4["by_layout"][kern]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "qgs_tpu_torch/csrc/rk4_fused.cu",
+            "replaces": None,
+            "launches": sum(main_launches.values()),
+            "rank5_launches": main_launches["rank5"],
+            "examples_launches": main_launches["examples"],
+            "max_abs_err": max(rank5[m]["k5_B4096_500_steps"]["by_layout"][
+                kern]["max_abs_err"] for m in ("t4", "dynT")),
+            "ms": t4["ms"],
+            "plain_ms": k5_t4["plain_ms"],
+            "bound_ms": k5_t4["bound_ms"],
+            "bound_by": k5_t4["bound_by"],
+            "share_of_bound": t4["share_of_bound"],
+            "library_ms": None,
+            "shape": (f"T4 B=4096 n=38 steps=500 float64, "
+                      f"G={k5_t4['groups']}"),
+            "ms_per_groups": {k: v for k, v in k5_t4["ms_per_groups"].items()
+                              if k.startswith(f"{kern} ")},
+            "f32": rank5["t4"]["k5_f32_B4096_500_steps"]["by_layout"][kern],
+            "dynT": rank5["dynT"]["k5_B4096_500_steps"]["by_layout"][kern],
+            "dynT_f32": rank5["dynT"]["k5_f32_B4096_500_steps"][
+                "by_layout"][kern],
+            "card": card,
+        })
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"diagnostics": diagnostics}), flush=True)
     print(json.dumps({"rank5": rank5}), flush=True)

@@ -49,14 +49,17 @@ def _nvcc():
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # the resident K1's and K5's launches; the streamed K1's add its scratch
-    # and its cluster size, the single-buffer variant's its scratch
+    # and its cluster size, the single-buffer variant's its scratch, K5's
+    # paired layout's its pair table and pair count
     resident = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr, ptr]
     streamed = resident[:-1] + [ptr, i32, ptr]
     one_buffer = resident[:-1] + [ptr, ptr]
+    paired = resident[:-1] + [ptr, i32, ptr]
     for name, argtypes in (
             ("qgs_rk4_fused_f32", resident), ("qgs_rk4_fused_f64", resident),
             ("qgs_rk4_quartic_f32", resident),
             ("qgs_rk4_quartic_f64", resident),
+            ("qgs_rk4_paired_f32", paired), ("qgs_rk4_paired_f64", paired),
             ("qgs_rk4_streamed_f32", streamed),
             ("qgs_rk4_streamed_f64", streamed),
             ("qgs_rk4_streamed_1buf_f32", one_buffer),
@@ -77,6 +80,8 @@ def _declare(lib):
     lib.qgs_cuda_error_string.restype = ctypes.c_char_p
     lib.qgs_rk4_fused_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.qgs_rk4_fused_smem_bytes.restype = ctypes.c_longlong
+    lib.qgs_rk4_paired_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.qgs_rk4_paired_smem_bytes.restype = ctypes.c_longlong
     lib.qgs_rk4_df_fused_smem_bytes.argtypes = [i32, i32, i32]
     lib.qgs_rk4_df_fused_smem_bytes.restype = ctypes.c_longlong
     for name in ("qgs_rk4_streamed_smem_bytes",

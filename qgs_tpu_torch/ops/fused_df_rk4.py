@@ -77,7 +77,7 @@ def df_streamed_records(layout):
                         TILE)
 
 
-def _df_sizes(n1, groups, width, dtype):
+def _df_sizes(coords, n1, groups, width, dtype):
     if dtype != torch.float32:
         raise TypeError(f"dtype {dtype}: the kernel takes float32 (hi, lo) "
                         "pairs")

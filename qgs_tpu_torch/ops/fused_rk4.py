@@ -26,7 +26,7 @@ a tendency, and launches it.  There are three:
   double-float.
 * :data:`~qgs_tpu_torch.ops.fused_rk4_quartic.K5`: a rank-5 quartic
   tendency in float64 or float32, K1's resident kernel over a four-index
-  entry.
+  entry, or over a two-index entry of pair products (its paired layout).
 
 A family holds its G (the row groups, one warp each, of a block), the
 tendency module, rank and state dtypes it takes (:meth:`KernelFamily.takes`,
@@ -40,8 +40,9 @@ The choice of kernel is made in one place, a tendency's launch plan
 ``"resident"`` where the resident layout's shared memory fits one block's
 opt-in limit of the card, else ``"streamed"`` where the streamed one does,
 else ``"streamed_1buf"`` where the single-buffer variant's does, else none
-(:func:`pick_kernel`).  From the plan's first launch of a kernel
-on it also holds the family's layout and that kernel's device tables
+(:func:`pick_kernel`, over the family's own order of kernels: K5's is
+``"paired"``, then ``"resident"``).  From the plan's first launch of a
+kernel on it also holds the family's layout and that kernel's device tables
 (:func:`plan_tables`; for the streamed K1 at ``c > 1`` the tables of a
 layout of ``c·G`` groups, and the card's occupancy, queried once a plan).
 A launch looks its plan up under the span
@@ -257,13 +258,14 @@ def streamed_smem_bytes(n1, groups, dtype, inputs=2):
     return ring_bytes(groups) + _itemsize(dtype) * inputs * int(n1) * LANES
 
 
-def pick_kernel(sizes, limit):
+def pick_kernel(sizes, limit, kernels=KERNELS):
     """The kernel of a launch plan, from the shared memory of the family's
-    layouts, ``sizes``, in the order of :data:`KERNELS` (the resident, the
-    streamed and the single-buffer streamed kernel's; None, or left out,
-    where the family has no such kernel or it cannot take the tensor): the
-    first kernel whose size is at most ``limit`` bytes, else ``None``."""
-    for kernel, size in zip(KERNELS, sizes):
+    layouts, ``sizes``, in the order of its ``kernels`` (by default
+    :data:`KERNELS`: the resident, the streamed and the single-buffer
+    streamed kernel's; None, or left out, where the family has no such
+    kernel or it cannot take the tensor): the first kernel whose size is at
+    most ``limit`` bytes, else ``None``."""
+    for kernel, size in zip(kernels, sizes):
         if size is not None and size <= limit:
             return kernel
     return None
@@ -440,16 +442,17 @@ def raise_on_error(err, kernel):
                            f"({_build.error_string(err)})")
 
 
-def no_kernel_fits(name, sizes, n1, limit, device):
+def no_kernel_fits(name, kernels, sizes, n1, limit, device):
     """The error of a launch whose tendency fits none of its family's
-    kernels; ``sizes`` its layouts' bytes in the order of :data:`KERNELS`
-    (the second None for a family without a streamed kernel, the third
-    left out for one without the single-buffer variant), ``limit`` the
-    shared memory a block on ``device``."""
-    if sizes[1] is None:
+    ``kernels``; ``sizes`` its layouts' bytes in their order (for
+    :data:`KERNELS`, the third left out for a family without the
+    single-buffer variant), ``limit`` the shared memory a block on
+    ``device``."""
+    if kernels[:2] != KERNELS[:2]:
+        layouts = ", ".join(f"{k} {s} B" for k, s in zip(kernels, sizes))
         return RuntimeError(
-            f"{name} cannot launch: its layout ({sizes[0]} B) of a tensor "
-            f"of n1 = {n1} does not fit the {limit} B of shared memory a "
+            f"{name} cannot launch: its layout of a tensor of n1 = {n1} "
+            f"({layouts}) does not fit the {limit} B of shared memory a "
             f"block on {device}")
     streamed = (f"the streamed one ({sizes[1]} B)" if len(sizes) < 3 else
                 f"the streamed ones ({sizes[1]} B; single-buffer "
@@ -494,9 +497,9 @@ class KernelFamily(NamedTuple):
     a ``module`` (its tensor of ``rank``) on states of ``dtypes`` (each part
     of a (hi, lo) pair where ``pair``) whose first dimension is at most
     ``max_n1``, with ``groups`` row groups (warps) a block.
-    ``sizes(n1, groups, width, dtype)`` gives its layouts' shared memory
-    in the order of :data:`KERNELS` (None, or left out, for a kernel the
-    family lacks),
+    ``sizes(coords, n1, groups, width, dtype)`` gives its layouts' shared
+    memory in the order of its ``kernels`` (:data:`KERNELS` unless it says
+    otherwise; None, or left out, for a kernel the family lacks),
     ``layout(coords, data, shape, groups, rows)`` the family's layout,
     ``tables(layout, kernel, dtype)`` a kernel's tables of it (``(array,
     dtype)`` pairs in the launcher's order, dtype None for the array's
@@ -520,6 +523,7 @@ class KernelFamily(NamedTuple):
     reference: Optional[Callable]
     layout: Callable = group_layout
     occupancy: Optional[Callable] = None
+    kernels: tuple = KERNELS
 
     def takes(self, f, y):
         """Whether the family's kernels run the tendency module ``f`` on
@@ -568,9 +572,10 @@ class KernelFamily(NamedTuple):
         """Advance the (B, n) state ``y`` (a (hi, lo) pair for a
         double-float family) by ``len(dts)`` RK4 steps of the tendency
         module ``f`` in one launch; ``dts`` (n_steps,) float64 on the
-        state's device.  ``kernel`` (one of :data:`KERNELS`) forces a
-        kernel, as the checks that hold the kernels bit for bit do;
-        by default the launch plan chooses (:func:`plan_tables`).
+        state's device.  ``kernel`` (one of the family's ``kernels``)
+        forces a kernel, as the checks that hold the kernels
+        bit for bit do; by default the launch plan chooses
+        (:func:`plan_tables`).
 
         Returns ``(y_final, records)`` (pairs for a pair), records
         (n_steps // write_every, B, n) holding the state after every
@@ -587,7 +592,7 @@ class KernelFamily(NamedTuple):
         return self.run(kernel, tables, f.shape[0], y, dts, write_every)
 
 
-def _k1_sizes(n1, groups, width, dtype):
+def _k1_sizes(coords, n1, groups, width, dtype):
     return (smem_bytes(n1, groups, width, dtype),
             streamed_smem_bytes(n1, groups, dtype),
             streamed_smem_bytes(n1, groups, dtype, inputs=1))
@@ -667,12 +672,13 @@ class LaunchPlan:
     ``groups`` and shared-memory ``limit`` (:func:`launch_plan`): the
     arrays it was built from (``coords``, ``data``, ``shape``), its rows'
     :class:`RowGroups` (``rows``), its layouts' bytes in the order of
-    :data:`KERNELS` (``sizes``, None past the family's ``max_n1``) and the
-    kernel the route takes (``kernel``: one of :data:`KERNELS` or ``None``,
-    :func:`pick_kernel`); from the first launch of a kernel on
-    (:func:`plan_tables`), the family's layout (``layout``) and that
-    kernel's device tables (``tables``, kernel -> tuple of tensors in the
-    launcher's order; ``(kernel, c)`` for a cluster's); from the first
+    the family's ``kernels`` (``sizes``, None past the family's
+    ``max_n1``) and the kernel the route takes (``kernel``: one of them or
+    ``None``, :func:`pick_kernel`); from the
+    first launch of a kernel on (:func:`plan_tables`), the family's layout
+    (``layout``) and that kernel's device tables (``tables``, kernel ->
+    tuple of tensors in the launcher's order; ``(kernel, c)`` for a
+    cluster's); from the first
     streamed launch of a family that clusters it, the card's
     ``occupancy`` (its SMs and clusters at each ``c``), and the last
     streamed launch's ``c`` (``cluster``)."""
@@ -681,9 +687,10 @@ class LaunchPlan:
         self.coords, self.data, self.shape = f.coords, f.data, f.shape
         self.device, self.groups, self.limit = device, groups, limit
         self.rows = row_groups(f.coords, f.shape[0], groups)
-        self.sizes = (family.sizes(f.shape[0], groups, self.rows.width, dtype)
+        self.sizes = (family.sizes(f.coords, f.shape[0], groups,
+                                   self.rows.width, dtype)
                       if f.shape[0] <= family.max_n1 else (None, None))
-        self.kernel = pick_kernel(self.sizes, limit)
+        self.kernel = pick_kernel(self.sizes, limit, family.kernels)
         self.layout = None
         self.tables = {}
         self.occupancy = None
@@ -748,8 +755,8 @@ def plan_tables(f, family, kernel, dtype, device, groups=None, limit=None,
         plan = launch_plan(f, family, dtype, device, groups, limit)
         kernel = kernel or plan.kernel
         if kernel is None:
-            raise no_kernel_fits(family.name, plan.sizes, plan.shape[0],
-                                 plan.limit, plan.device)
+            raise no_kernel_fits(family.name, family.kernels, plan.sizes,
+                                 plan.shape[0], plan.limit, plan.device)
         clustered = (kernel == "streamed" and family.occupancy is not None
                      and plan.groups == family.groups)
         cluster = _cluster

@@ -326,8 +326,8 @@ def test_launch_plan_is_built_once_a_key(maooam):
     assert fused_rk4.plan_hits - hits == 1
     assert got[0][0] == got[1][0] == plan.kernel == "resident"
     assert all(a is b for a, b in zip(got[0][1], got[1][1]))
-    assert plan.sizes == fused_rk4.K1.sizes(f.shape[0], 8, plan.rows.width,
-                                            torch.float64)
+    assert plan.sizes == fused_rk4.K1.sizes(f.coords, f.shape[0], 8,
+                                            plan.rows.width, torch.float64)
     assert plan.kernel == fused_rk4.pick_kernel(plan.sizes, H100_OPTIN)
     assert list(f.launch_plans.values()) == [plan]
 
@@ -350,8 +350,8 @@ def test_launch_plan_is_another_for_another_key(maooam, change):
     assert other is not first and len(f.launch_plans) == 2
     assert fused_rk4.launch_plan(f, device="cpu", **args) is other
     width = fused_rk4.row_groups(f.coords, f.shape[0], args["groups"]).width
-    sizes = args["family"].sizes(f.shape[0], args["groups"], width,
-                                 args["dtype"])
+    sizes = args["family"].sizes(f.coords, f.shape[0], args["groups"],
+                                 width, args["dtype"])
     assert other.kernel == fused_rk4.pick_kernel(sizes, args["limit"])
     assert other.kernel == ("streamed" if change == "limit" else "resident")
 

@@ -5,11 +5,15 @@ On the CPU: the layout (the packed indices, the rows' groups, the zero
 padding, every entry exactly once), its plain twin
 ``quartic_group_tendency`` against the rank-5 ``Tendency`` (float64 within
 1e-13 relative), K5's G, its launch plan beside K1's, and the launcher's
-refusals.  On a CUDA card (marked ``cuda``): the kernel
-against the plain step loop's RK4 step on the T4 and dynamic-T models and
-on a random rank-5 tensor, its records, ragged batches, its counter, and a
-stored plan's launches bit for bit.  No JAX here: the models are built by
-the port's own host layers (``tests/test_torch_rank5.py`` holds K5's
+refusals; the paired layout (its pair table, its indices over the
+extended stage input, its records, its twin ``paired_group_tendency``),
+its shared memory and the launch plan's choice between the two layouts
+(the paired one wherever it fits).  On
+a CUDA card (marked ``cuda``), each layout: the kernel against the plain
+step loop's RK4 step on the T4 and dynamic-T models and on a random
+rank-5 tensor, its records, ragged batches, its counters, and a stored
+plan's launches bit for bit.  No JAX here: the models are built by the
+port's own host layers (``tests/test_torch_rank5.py`` holds K5's
 ``integrate`` on the card against the JAX package's)."""
 
 import numpy as np
@@ -46,13 +50,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def quartic_params(**scheme):
-    """The symbolic 2x2 atmosphere + 2x4 ocean with a rank-5 radiation
-    scheme (``T4=True`` or ``dynamic_T=True``): ndim 38."""
+def quartic_params(atmosphere=(2, 2), ocean=(2, 4), **scheme):
+    """The symbolic ``atmosphere`` channel + ``ocean`` basin (by default
+    2x2 + 2x4: ndim 38) with a rank-5 radiation scheme (``T4=True`` or
+    ``dynamic_T=True``)."""
     pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8}, **scheme)
     pars.set_params({'kd': 0.04, 'kdp': 0.04, 'n': 1.5})
-    pars.set_atmospheric_channel_fourier_modes(2, 2, mode='symbolic')
-    pars.set_oceanic_basin_fourier_modes(2, 4, mode='symbolic')
+    pars.set_atmospheric_channel_fourier_modes(*atmosphere, mode='symbolic')
+    pars.set_oceanic_basin_fourier_modes(*ocean, mode='symbolic')
     return pars
 
 
@@ -106,8 +111,31 @@ def models():
 MODELS = ["t4", "dynT", "random"]
 
 
+@pytest.fixture(scope="module")
+def dyn_t_114():
+    """Dynamic-T on a 4x4 channel over a 4x5 basin (ndim 114): a tensor
+    whose paired block does not fit the H100 in float64 while its
+    four-gather one does."""
+    _, _, qgt = create_tendencies(
+        quartic_params((4, 4), (4, 5), dynamic_T=True),
+        return_qgtensor=True, device="cpu")
+    T = qgt.tensor
+    return COO(T.coords, T.data, T.shape)
+
+
 def _tendency(t, dtype=torch.float64, device="cpu"):
     return Tendency(t.coords, t.data, t.shape, dtype, device)
+
+
+LAYOUTS = ["resident", "paired"]     # the four-gather and the paired layout
+
+
+def force_layout(monkeypatch, layout):
+    """The launch plan made to take ``layout``: the paired one, which fits
+    the T4 and dynamic-T tensors, or the four-gather one, the paired layout
+    then given no size (a kernel that cannot take the tensor)."""
+    if layout == "resident":
+        monkeypatch.setattr(k5, "paired_smem_bytes", lambda *args: None)
 
 
 # -- the layout --------------------------------------------------------------
@@ -255,12 +283,217 @@ def test_t4_fits_the_h100(models, groups, width):
         fused_rk4.smem_bytes(39, groups, width, torch.float16)
 
 
+# -- the paired layout --------------------------------------------------------
+
+def _needed_pairs(t):
+    """The pairs the entries (output row 0 dropped) need, from their
+    sorted trailing indices: a quartic entry's (j, k) and (l, m), a cubic
+    one's (l, m)."""
+    c = np.asarray(t.coords)
+    s = np.sort(c[1:, c[0] != 0], axis=0)
+    quartic = (s != 0).all(axis=0)
+    cubic = (s != 0).sum(axis=0) == 3
+    return {(int(a), int(b)) for a, b in np.concatenate(
+        [s[:2, quartic], s[2:, quartic | cubic]], axis=1).T}
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_pair_table_holds_every_pair_once(models, name):
+    """The pair table: each pair that an entry needs, both indices
+    nonzero, once, in increasing order, and no other; 111 pairs for T4
+    (all of them its quartic entries'), 20 for dynamic-T."""
+    t = models[name]
+    lay = k5.quartic_layout(t.coords, t.data, t.shape, 16)
+    pairs = lay.pairs
+    assert pairs.ndim == 2 and pairs.shape[1] == 2
+    assert (pairs > 0).all() and (pairs[:, 0] <= pairs[:, 1]).all()
+    keys = pairs[:, 0] * t.shape[0] + pairs[:, 1]
+    assert (np.diff(keys) > 0).all()
+    assert set(map(tuple, pairs.tolist())) == _needed_pairs(t)
+    assert len(pairs) == k5.pair_count(t.coords, t.shape[0])
+    assert len(pairs) == {"t4": 111, "dynT": 20}.get(name, len(pairs))
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_paired_indices_lie_in_the_extended_input(models, name):
+    """Every paired record's two indices lie in ``[0, n1 + P)``; each
+    entry's term over the extended input ``[1, y, p]`` is the product of
+    its four trailing indices' values, exactly on integer-valued states;
+    zero records have the indices 0."""
+    t = models[name]
+    n1 = t.shape[0]
+    lay = k5.quartic_layout(t.coords, t.data, t.shape, 16)
+    P = len(lay.pairs)
+    a, b = lay.ab & 0xffff, lay.ab >> 16
+    assert (a >= 0).all() and (b >= 0).all()
+    assert (a < n1 + P).all() and (b < n1 + P).all()
+    assert not lay.ab[lay.vals == 0].any()
+    # values 2 .. n1 + 1 (xx[0] = 1): products of four of them are exact
+    xx = np.arange(1, n1 + 1, dtype=np.float64)
+    xx[1:] += 1
+    xe = np.concatenate([xx, xx[lay.pairs[:, 0]] * xx[lay.pairs[:, 1]]])
+    for g, length in enumerate(lay.lengths):
+        idx = k5.unpack(lay.jklm[g, :length])
+        np.testing.assert_array_equal(xe[a[g, :length]] * xe[b[g, :length]],
+                                      np.prod(xx[idx], axis=0))
+
+
+@pytest.mark.parametrize("groups", [8, 16])
+@pytest.mark.parametrize("name", MODELS)
+def test_paired_twin_matches_the_tendency(models, name, groups):
+    """``paired_group_tendency`` through the paired tables against the
+    plain rank-5 ``Tendency``: float64 within 1e-13 of the largest
+    |value|, on 5 states."""
+    t = models[name]
+    f = _tendency(t)
+    x = states(t.shape[0] - 1, 5, 4)
+    lay = k5.quartic_layout(t.coords, t.data, t.shape, groups)
+    ref = f(0., x)
+    got = k5.paired_group_tendency(lay, x)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=F64_REL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_paired_records_pack_the_layout(models, dtype):
+    """``paired_records``: K1's 16-byte records ``{a | b << 16, ctl,
+    value}`` with the four-gather layout's ``ctl`` and values, and the
+    pair table as int32 words ``a | b << 16``; decoded by K1's
+    ``streamed_tendency``'s reading over the extended input, they give
+    the twin's tendency."""
+    t = models["t4"]
+    lay = k5.quartic_layout(t.coords, t.data, t.shape, 16)
+    recs, words = k5.paired_records(lay, dtype)
+    assert recs.dtype == np.int32 and recs.shape == lay.ab.shape + (4,)
+    np.testing.assert_array_equal(recs[..., 0], lay.ab)
+    np.testing.assert_array_equal(recs[..., 1:],
+                                  k5.quartic_records(lay, dtype)[..., 1:])
+    assert words.dtype == np.int32 and words.shape == (len(lay.pairs),)
+    np.testing.assert_array_equal(words & 0xffff, lay.pairs[:, 0])
+    np.testing.assert_array_equal(words >> 16, lay.pairs[:, 1])
+    x = states(38, 5, 11, dtype)
+    xx = torch.cat([torch.ones(5, 1, dtype=dtype), x], dim=1)
+    p = xx[:, words & 0xffff] * xx[:, words >> 16]
+    got = fused_rk4.streamed_tendency(recs, lay.lengths,
+                                      torch.cat([x, p], dim=1))[:, :38]
+    want = k5.paired_group_tendency(lay, x)
+    assert torch.equal(got, want)
+
+
+def test_paired_layout_fits_the_h100(models):
+    """T4's paired layout at G = 16: the four-gather block's 149,504 B,
+    each stage input 111 rows longer and the pair table, 206,780 B in
+    float64 (158,652 B in float32), inside the H100's 232,448 B."""
+    t = models["t4"]
+    width = fused_rk4.row_groups(t.coords, 39, 16).width
+    for dtype, item in ((torch.float64, 8), (torch.float32, 4)):
+        size = k5.paired_smem_bytes(39, 111, 16, width, dtype)
+        assert size == (fused_rk4.smem_bytes(39, 16, width, dtype)
+                        + item * 2 * 111 * 32 + 4 * 111)
+        assert size <= H100_OPTIN
+    assert k5.paired_smem_bytes(39, 111, 16, width, torch.float64) == 206780
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", MODELS)
+def test_rule_takes_the_paired_layout(models, name, dtype):
+    """The launch plan's choice at the H100's limit: the paired layout
+    wherever it fits, so for T4 (5,350 records, 111 pairs), dynamic-T (462
+    records, 20 pairs) and the random tensor, in float64 and float32; the
+    plan's bytes are the paired layout's, then the four-gather one's; its
+    tables are ``paired_records``'."""
+    t = models[name]
+    f = _tendency(t, dtype)
+    plan = fused_rk4.launch_plan(f, k5.K5, dtype, "cpu", limit=H100_OPTIN)
+    records = {"t4": 5350, "dynT": 462}.get(name)
+    assert records is None or int(plan.rows.load.sum()) == records
+    width, n1 = plan.rows.width, t.shape[0]
+    assert plan.sizes == (
+        k5.paired_smem_bytes(n1, k5.pair_count(t.coords, n1), 16, width,
+                             dtype),
+        fused_rk4.smem_bytes(n1, 16, width, dtype))
+    assert plan.kernel == "paired"
+    kernel, (lengths, recs, words) = fused_rk4.plan_tables(
+        f, k5.K5, None, dtype, "cpu", limit=H100_OPTIN)
+    assert kernel == "paired"
+    want, want_words = k5.paired_records(plan.layout, dtype)
+    np.testing.assert_array_equal(recs.numpy(), want)
+    np.testing.assert_array_equal(words.numpy(), want_words)
+    np.testing.assert_array_equal(lengths.numpy(), plan.layout.lengths)
+
+
+def test_rule_keeps_four_gathers_where_pairs_do_not_fit(models):
+    """A limit between T4's four-gather block (149,504 B) and its paired
+    one (206,780 B): the four-gather layout; below both, none."""
+    f = _tendency(models["t4"])
+    for limit, kernel in ((200_000, "resident"), (149_504, "resident"),
+                          (149_503, None)):
+        assert fused_rk4.launch_plan(f, k5.K5, torch.float64, "cpu",
+                                     limit=limit).kernel == kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_rule_keeps_four_gathers_on_dynamic_t_at_ndim_114(dyn_t_114, dtype):
+    """The four-gather layout's own configuration: dynamic-T at ndim 114
+    (58 pairs) in float64, its paired block 246,504 B past the H100's
+    232,448 B and its four-gather one 216,576 B inside; in float32 (173,032
+    and 157,952 B) the paired one."""
+    t = dyn_t_114
+    plan = fused_rk4.launch_plan(_tendency(t, dtype), k5.K5, dtype, "cpu",
+                                 limit=H100_OPTIN)
+    assert t.shape[0] == 115 and k5.pair_count(t.coords, 115) == 58
+    assert (plan.sizes, plan.kernel) == {
+        torch.float64: ((246504, 216576), "resident"),
+        torch.float32: ((173032, 157952), "paired")}[dtype]
+
+
+@pytest.mark.parametrize("groups", [8, 16])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k5_launches_never_count_k1(models, monkeypatch, layout, groups):
+    """K5's run over either layout at G = 8 or 16 (the launch itself
+    stood in for: it has no CPU build) counts one launch in
+    ``fused_rk4_quartic.launches``, one in ``launches_paired`` over the
+    paired layout, and none of K1's; the paired launch passes its pair
+    table and count after the records."""
+    seen = []
+
+    def stand_in(kernel, fn, tables, n1, y, dts, write_every, *extra):
+        seen.append((kernel, fn, len(tables), extra))
+        return y, y, 1
+
+    monkeypatch.setattr(k5, "run_records", stand_in)
+    t = models["t4"]
+    f = _tendency(t)
+    kernel, tables = fused_rk4.plan_tables(f, k5.K5, layout, torch.float64,
+                                           "cpu", groups, H100_OPTIN)
+    before = (k5.launches, k5.launches_paired, fused_rk4.launches,
+              fused_rk4.launches_streamed)
+    k5.K5.run(kernel, tables, 39, states(38, 2, 0), None, 0)
+    after = (k5.launches, k5.launches_paired, fused_rk4.launches,
+             fused_rk4.launches_streamed)
+    assert np.subtract(after, before).tolist() == [
+        1, int(layout == "paired"), 0, 0]
+    (name, fn, n_tables, extra), = seen
+    if layout == "paired":
+        assert (name, fn, n_tables) == ("rk4_paired", "qgs_rk4_paired_f64",
+                                        2)
+        assert extra == (tables[2].data_ptr(), 111)
+    else:
+        assert (name, fn, n_tables, extra) == ("rk4_quartic",
+                                               "qgs_rk4_quartic_f64", 2, ())
+
+
 # -- the launch plan ----------------------------------------------------------
 
-def test_k5_plan_is_built_once_a_key_beside_k1s(models):
-    """K5's plan of a rank-5 tendency: one plan and one layout a key (the
-    second tables' request a plan hit) at K5's G, the records of
+def test_k5_plan_is_built_once_a_key_beside_k1s(models, monkeypatch):
+    """K5's plan of a rank-5 tendency, the four-gather layout forced by a
+    paired layout of no size: one plan and one layout a key (the second
+    tables' request a plan hit) at K5's G, the records of
     ``quartic_records``; K1's plan of the same module is another."""
+    force_layout(monkeypatch, "resident")
     t = models["t4"]
     f = _tendency(t)
     builds, hits = k5.layout_builds, fused_rk4.plan_hits
@@ -268,8 +501,8 @@ def test_k5_plan_is_built_once_a_key_beside_k1s(models):
     plan = fused_rk4.launch_plan(f, k5.K5, torch.float64, "cpu",
                                  limit=H100_OPTIN)
     assert plan.kernel == "resident" and plan.rows.width == 430
-    assert plan.sizes == (fused_rk4.smem_bytes(39, 16, plan.rows.width,
-                                               torch.float64), None)
+    assert plan.sizes == (None, fused_rk4.smem_bytes(39, 16, plan.rows.width,
+                                                     torch.float64))
     got = [fused_rk4.plan_tables(f, k5.K5, None, torch.float64, "cpu",
                                  limit=H100_OPTIN)
            for _ in range(2)]
@@ -385,10 +618,13 @@ DT = 0.01                # the T4 example's step
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("name", MODELS)
-def test_kernel_matches_plain_loop_f64(models, cuda_device, name):
+def test_kernel_matches_plain_loop_f64(models, cuda_device, name, layout,
+                                       monkeypatch):
     """float64, B = 1000 (a ragged last block), 200 steps, a record every
     50: within 1e-12 of the largest |value| of the plain loop's."""
+    force_layout(monkeypatch, layout)
     t = models[name]
     f = _tendency(t, torch.float64, cuda_device)
     y = states(t.shape[0] - 1, 1000, 1, device=cuda_device)
@@ -403,11 +639,14 @@ def test_kernel_matches_plain_loop_f64(models, cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("name", MODELS)
-def test_kernel_matches_plain_loop_f32(models, cuda_device, name):
+def test_kernel_matches_plain_loop_f32(models, cuda_device, name, layout,
+                                       monkeypatch):
     """float32 against the plain float32 loop, B = 1000, 200 steps: within
     1e-6 of the plain float64 loop's largest |value| (both round to
     float32 in other orders)."""
+    force_layout(monkeypatch, layout)
     t = models[name]
     f32 = _tendency(t, torch.float32, cuda_device)
     y = states(t.shape[0] - 1, 1000, 2, device=cuda_device)
@@ -426,20 +665,21 @@ def test_kernel_matches_plain_loop_f32(models, cuda_device, name):
 @pytest.mark.parametrize("write_steps", [0, 1, 50])
 def test_integrate_records_through_k5(models, cuda_device, write_steps):
     """``integrate_runge_kutta`` of T4 on the card takes K5 (one launch,
-    no K1, K2 or plain contraction) and gives the plain route's records
-    (the same call on the CPU) within 1e-12, at write_steps 0, 1 and 50,
-    over 101 steps with a shorter last one."""
+    over the paired layout, which the plan takes for T4; no K1, K2 or
+    plain contraction) and gives the plain route's records (the same call
+    on the CPU) within 1e-12, at write_steps 0, 1 and 50, over 101 steps
+    with a shorter last one."""
     t = models["t4"]
     f = _tendency(t, torch.float64, cuda_device)
     ic = states(38, 40, 5)
-    before = (k5.launches, fused_rk4.launches, fused_rk4.launches_streamed,
-              contraction.two_level_calls)
+    before = (k5.launches, k5.launches_paired, fused_rk4.launches,
+              fused_rk4.launches_streamed, contraction.two_level_calls)
     tt, traj = integrate_runge_kutta(f, 0., 1.005, 0.01, ic=ic,
                                      write_steps=write_steps)
     torch.cuda.synchronize()
-    after = (k5.launches, fused_rk4.launches, fused_rk4.launches_streamed,
-             contraction.two_level_calls)
-    assert np.subtract(after, before).tolist() == [1, 0, 0, 0]
+    after = (k5.launches, k5.launches_paired, fused_rk4.launches,
+             fused_rk4.launches_streamed, contraction.two_level_calls)
+    assert np.subtract(after, before).tolist() == [1, 1, 0, 0, 0]
     tc, ref = integrate_runge_kutta(_tendency(t), 0., 1.005, 0.01, ic=ic,
                                     write_steps=write_steps)
     np.testing.assert_array_equal(tt, tc)
@@ -449,11 +689,13 @@ def test_integrate_records_through_k5(models, cuda_device, write_steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("B", [33, 4097])
-def test_ragged_batches(models, cuda_device, B):
+def test_ragged_batches(models, cuda_device, B, layout, monkeypatch):
     """B = 33 and 4097 (one live lane in the last block): each member's
     result equals the same member's in a launch of B = 1 bit for bit,
     and the plain loop's within 1e-12."""
+    force_layout(monkeypatch, layout)
     t = models["t4"]
     f = _tendency(t, torch.float64, cuda_device)
     y = states(38, B, 6, device=cuda_device)
@@ -472,29 +714,37 @@ def test_ragged_batches(models, cuda_device, B):
 
 
 @pytest.mark.cuda
-def test_launch_counts_in_k5_alone(models, cuda_device):
-    """A launch counts one in ``fused_rk4_quartic.launches``, and nothing
-    in K1's counters (which the benchmark's path check reads) or in the
-    plain contraction's."""
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_launch_counts_in_k5_alone(models, cuda_device, layout,
+                                   monkeypatch):
+    """A launch counts one in ``fused_rk4_quartic.launches`` (and one in
+    ``launches_paired`` over the paired layout), and nothing in K1's
+    counters (which the benchmark's path check reads) or in the plain
+    contraction's."""
+    force_layout(monkeypatch, layout)
     t = models["dynT"]
     f = _tendency(t, torch.float64, cuda_device)
     y = states(38, 64, 7, device=cuda_device)
-    before = (k5.launches, fused_rk4.launches, fused_rk4.launches_streamed,
-              contraction.two_level_calls)
+    before = (k5.launches, k5.launches_paired, fused_rk4.launches,
+              fused_rk4.launches_streamed, contraction.two_level_calls)
     for _ in range(3):
         k5.fused_rk4_quartic(f, y, _dts(5, 0.01, cuda_device), 0)
     torch.cuda.synchronize()
-    after = (k5.launches, fused_rk4.launches, fused_rk4.launches_streamed,
-             contraction.two_level_calls)
-    assert np.subtract(after, before).tolist() == [3, 0, 0, 0]
+    after = (k5.launches, k5.launches_paired, fused_rk4.launches,
+             fused_rk4.launches_streamed, contraction.two_level_calls)
+    paired = 3 * (layout == "paired")
+    assert np.subtract(after, before).tolist() == [3, paired, 0, 0, 0]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-def test_stored_plan_launches_bit_equal(models, cuda_device, dtype):
+def test_stored_plan_launches_bit_equal(models, cuda_device, dtype, layout,
+                                        monkeypatch):
     """The second launch of one module (its stored plan, a plan hit) is
     bit-equal to the first, and to a fresh module's."""
+    force_layout(monkeypatch, layout)
     t = models["t4"]
     f = _tendency(t, dtype, cuda_device)
     y = states(38, 100, 8, dtype, cuda_device)
@@ -510,18 +760,69 @@ def test_stored_plan_launches_bit_equal(models, cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_both_group_counts_agree(models, cuda_device):
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_both_group_counts_agree(models, cuda_device, layout, monkeypatch):
     """The layout at G = 8 (a plan's tables at 8, launched by K5's run)
     against K5's G = 16: the same rows summed in the same order, so
     bit-equal."""
+    force_layout(monkeypatch, layout)
     t = models["t4"]
     f = _tendency(t, torch.float64, cuda_device)
     y = states(38, 100, 9, device=cuda_device)
     dts = _dts(30, 0.01, cuda_device)
     got16 = k5.fused_rk4_quartic(f, y, dts, 10)
-    _, tables8 = fused_rk4.plan_tables(f, k5.K5, None, torch.float64,
-                                       cuda_device, 8)
-    got8 = k5.K5.run("resident", tables8, t.shape[0], y, dts, 10)
+    kernel, tables8 = fused_rk4.plan_tables(f, k5.K5, None, torch.float64,
+                                            cuda_device, 8)
+    assert kernel == layout
+    got8 = k5.K5.run(kernel, tables8, t.shape[0], y, dts, 10)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got8, got16))
+
+
+@pytest.mark.cuda
+def test_four_gather_runs_dynamic_t_at_ndim_114(dyn_t_114, cuda_device):
+    """Dynamic-T at ndim 114 in float64, where only the four-gather block
+    fits: one K5 launch over it (none over the paired layout, none of
+    K1's) within 1e-12 of the largest |value| of the plain loop (B = 100,
+    50 steps, a record every 10)."""
+    t = dyn_t_114
+    f = _tendency(t, torch.float64, cuda_device)
+    y = states(t.shape[0] - 1, 100, 12, device=cuda_device)
+    dts = _dts(50, DT, cuda_device)
+    before = (k5.launches, k5.launches_paired, fused_rk4.launches,
+              fused_rk4.launches_streamed)
+    got = k5.fused_rk4_quartic(f, y, dts, 10)
+    after = (k5.launches, k5.launches_paired, fused_rk4.launches,
+             fused_rk4.launches_streamed)
+    assert np.subtract(after, before).tolist() == [1, 0, 0, 0]
+    ref = _plain(f, y, dts, 10)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(b).all()
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=KERNEL_F64["rtol"]
+                                   * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", MODELS)
+def test_paired_kernel_matches_the_four_gather_one(models, cuda_device,
+                                                   name, dtype):
+    """Forced launches of both layouts on one state, 100 steps: within
+    1e-12 (float64) or 1e-6 (float32) of the largest |value| of each
+    other; they round the products in other orders."""
+    t = models[name]
+    f = _tendency(t, dtype, cuda_device)
+    y = states(t.shape[0] - 1, 200, 10, dtype, cuda_device)
+    dts = _dts(100, DT, cuda_device)
+    four, paired = (k5.K5.launch(f, y, dts, 25, kernel=kernel)
+                    for kernel in LAYOUTS)
+    torch.cuda.synchronize()
+    rtol = KERNEL_F64["rtol"] if dtype == torch.float64 else KERNEL_F32["rtol"]
+    for a, b in zip(paired, four):
+        np.testing.assert_allclose(
+            a.double().cpu().numpy(), b.double().cpu().numpy(), rtol=0,
+            atol=rtol * b.abs().max().item())
 
